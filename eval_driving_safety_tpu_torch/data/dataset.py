@@ -1,0 +1,292 @@
+"""KITTI stereo frames, DSGN u8 batches, and the sweep's host side:
+fetching packed signs, replaying them, writing PNGs in the background.
+
+Counterpart of the DSGN attack parts of
+eval_driving_safety_tpu/data/dataset.py. Frames stay raw uint8 on the
+host; the device converts them (the clean pair is exactly the loaded
+pixels), and only packed gradient signs come back, from which the host
+replays every iterate bit-exactly (attack.pgd) and writes
+`{prefix}_iters_{k}/image_{2,3}/<id>.png`.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from eval_driving_safety_tpu_torch.config import DSGNInputConfig
+from eval_driving_safety_tpu_torch.data import kitti as K
+
+
+@dataclass
+class KittiSample:
+    frame_id: str
+    im_left: np.ndarray           # (H, W, 3) uint8 RGB
+    im_right: np.ndarray
+    calib: K.Calibration
+    objects: List[K.KittiObject]
+    orig_hw: tuple
+
+
+class KittiStereoDataset:
+    """KITTI object layout: root/{image_2,image_3,calib,label_2}/<id>.*;
+    frames load as uint8 RGB."""
+
+    def __init__(self, root: str, split_file: Optional[str] = None,
+                 image_2_dir: Optional[str] = None,
+                 image_3_dir: Optional[str] = None):
+        self.root = root
+        self.image_2_dir = image_2_dir or os.path.join(root, "image_2")
+        self.image_3_dir = image_3_dir or os.path.join(root, "image_3")
+        self.label_dir = os.path.join(root, "label_2")
+        self.calib_dir = os.path.join(root, "calib")
+        if split_file:
+            with open(split_file) as f:
+                self.ids = [ln.strip() for ln in f if ln.strip()]
+        else:
+            self.ids = sorted(
+                n.split(".")[0] for n in os.listdir(self.image_2_dir)
+                if n.endswith((".png", ".jpg")))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    @staticmethod
+    def _img_path(d: str, fid: str) -> str:
+        for ext in (".png", ".jpg"):
+            p = os.path.join(d, fid + ext)
+            if os.path.exists(p):
+                return p
+        raise FileNotFoundError(os.path.join(d, fid + ".png"))
+
+    def get(self, i: int) -> KittiSample:
+        fid = self.ids[i]
+        im_l = K.load_image_u8(self._img_path(self.image_2_dir, fid))
+        im_r = K.load_image_u8(self._img_path(self.image_3_dir, fid))
+        calib_path = os.path.join(self.calib_dir, fid + ".txt")
+        calib = K.read_calib(calib_path) if os.path.exists(calib_path) \
+            else K.Calibration.default()
+        label_path = os.path.join(self.label_dir, fid + ".txt")
+        objects = K.read_label(label_path) if os.path.exists(label_path) \
+            else []
+        return KittiSample(fid, im_l, im_r, calib, objects, im_l.shape[:2])
+
+    def batches(self, batch_size: int, prefetch: int = 2,
+                io_workers: int = 4, prepare=None):
+        """Yield `prepare(samples)` (or the sample lists) per batch, in
+        order. With prefetch > 0 that many batches are decoded and prepared
+        on a thread pool ahead of the consumer."""
+        n = len(self)
+        starts = range(0, n, batch_size)
+
+        def batch(s):
+            samples = [self.get(i) for i in range(s, min(s + batch_size, n))]
+            return prepare(samples) if prepare is not None else samples
+
+        if prefetch <= 0:
+            for s in starts:
+                yield batch(s)
+            return
+        with ThreadPoolExecutor(max_workers=io_workers) as ex:
+            it = iter(starts)
+            pending = deque(ex.submit(batch, s)
+                            for s in itertools.islice(it, prefetch + 1))
+            while pending:
+                fut = pending.popleft()
+                for s in itertools.islice(it, 1):
+                    pending.append(ex.submit(batch, s))
+                yield fut.result()
+
+
+def prepare_dsgn_batch_u8(samples: Sequence[KittiSample],
+                          cfg: DSGNInputConfig = DSGNInputConfig(),
+                          depth_dir: Optional[str] = None) -> Dict:
+    """Padded raw uint8 frames plus calibration vectors and optional
+    per-frame depth ground truth (`depth_dir/<id>.npy`, zeros if absent)."""
+    b = len(samples)
+    h, w = cfg.height, cfg.width
+    il = np.zeros((b, h, w, 3), np.uint8)
+    ir = np.zeros((b, h, w, 3), np.uint8)
+    depth = np.zeros((b, h, w), np.float32)
+    calib = {k: np.zeros((b,), np.float32)
+             for k in ("f_u", "baseline", "c_u", "c_v")}
+    for i, s in enumerate(samples):
+        il[i] = K.pad_to(s.im_left, h, w)
+        ir[i] = K.pad_to(s.im_right, h, w)
+        for k in calib:
+            calib[k][i] = getattr(s.calib, k)
+        if depth_dir:
+            p = os.path.join(depth_dir, s.frame_id + ".npy")
+            if os.path.exists(p):
+                depth[i] = K.pad_to(np.load(p).astype(np.float32), h, w)
+    return {"im_left_u8": il, "im_right_u8": ir, **calib,
+            "depth_gt": depth,
+            "frame_ids": [s.frame_id for s in samples],
+            "orig_hw": [s.orig_hw for s in samples],
+            "calibs": [s.calib for s in samples],
+            "objects": [s.objects for s in samples]}
+
+
+def u8_to_01(x):
+    """uint8 pixels -> float32 [0,1], equal to u8 / 255 computed on the
+    host. numpy input divides; a tensor gathers from a 256-entry table
+    built on the host with numpy's correctly rounded division, so the
+    device values are exact whatever its division does."""
+    if isinstance(x, np.ndarray):
+        return x.astype(np.float32) / 255.0
+    table = torch.from_numpy(np.arange(256, dtype=np.float32) / 255.0)
+    return table.to(x.device)[x.long()]
+
+
+def dsgn_boxes3d(samples: Sequence[KittiSample], max_boxes: int = 16) -> Dict:
+    """Padded (B, G, 8) [x, y, z, h, w, l, ry, cls] gt for the RPN3D loss
+    (Car and Van)."""
+    b = len(samples)
+    boxes = np.zeros((b, max_boxes, 8), np.float32)
+    num = np.zeros((b,), np.int32)
+    for i, s in enumerate(samples):
+        k = 0
+        for o in s.objects:
+            if o.type not in ("Car", "Van") or k >= max_boxes:
+                continue
+            boxes[i, k] = [*o.location, *o.dimensions, o.rotation_y, 1.0]
+            k += 1
+        num[i] = k
+    return {"boxes3d": boxes, "num_boxes": num}
+
+
+class AsyncImageWriter:
+    """Bounded-queue PNG writer pool: the sweep writes (iters+1) x 2 PNGs
+    per frame while the device runs the next frame. Write errors are
+    re-raised at flush()/close()."""
+
+    _STOP = object()
+
+    def __init__(self, workers: int = 2, queue_depth: int = 32,
+                 compress_level: int = 0):
+        self.compress_level = compress_level
+        self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        self._errors: List[BaseException] = []
+        self._threads = [threading.Thread(target=self._run, daemon=True,
+                                          name=f"png-writer-{i}")
+                         for i in range(max(1, workers))]
+        for t in self._threads:
+            t.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is self._STOP:
+                    return
+                path, img, crop_hw = item
+                K.save_image(path, fetch_np(img), crop_hw=crop_hw,
+                             compress_level=self.compress_level)
+            except Exception as e:                       # noqa: BLE001
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def put(self, path: str, img, crop_hw=None) -> None:
+        """Enqueue one write; `img` may be a device tensor, fetched on the
+        worker thread."""
+        self._q.put((path, img, crop_hw))
+
+    def flush(self) -> None:
+        self._q.join()
+        if self._errors:
+            raise self._errors[0]
+
+    def close(self) -> None:
+        try:
+            self.flush()
+        finally:
+            for _ in self._threads:
+                self._q.put(self._STOP)
+            for t in self._threads:
+                t.join()
+
+
+def fetch_np(x) -> np.ndarray:
+    """Host copy of a tensor (waits for the device) or an array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def fetch_signs1(side) -> tuple:
+    """One side of a collect="signs1" trajectory -> (pos, zero or None):
+    the zero plane is fetched only when some gradient was exactly 0."""
+    pos, zero, nz = side
+    if int(fetch_np(nz).sum()) == 0:
+        return fetch_np(pos), None
+    return fetch_np(pos), fetch_np(zero)
+
+
+def fetch_packed_signs(packed_l, packed_r):
+    """A sign trajectory pair -> host (pl, pr, bits): "signs1" sides are
+    3-tuples (bits=1 when no zero plane was needed, else converted to the
+    2-bit codes); plain tensors are the 2-bit format."""
+    from eval_driving_safety_tpu_torch.attack.pgd import signs1_to_packed2
+    if isinstance(packed_l, tuple):
+        pl, zl = fetch_signs1(packed_l)
+        pr, zr = fetch_signs1(packed_r)
+        if zl is None and zr is None:
+            return pl, pr, 1
+        return signs1_to_packed2(pl, zl), signs1_to_packed2(pr, zr), 2
+    return fetch_np(packed_l), fetch_np(packed_r), 2
+
+
+def save_sweep_from_signs(batch: Dict, clean_l: np.ndarray,
+                          clean_r: np.ndarray, packed_l, packed_r,
+                          prefix: str, writer, *, alpha, eps, clip_min,
+                          clip_max) -> None:
+    """Replay a packed sign trajectory from the host uint8 clean pair and
+    save every iteration under `{prefix}_iters_{k}/image_{2,3}/` (k = 0 is
+    the clean pair). A unit step with a half-integer ball in [0, 255]
+    replays in int16 (`replay_pgd_255`); anything else in f32."""
+    from eval_driving_safety_tpu_torch.attack.pgd import (replay_255_valid,
+                                                          replay_pgd,
+                                                          replay_pgd_255,
+                                                          signs1_to_packed2)
+    save_attacked_images(batch, clean_l, clean_r, f"{prefix}_iters_0",
+                         writer=writer)
+    pl, pr, bits = fetch_packed_signs(packed_l, packed_r)
+    if bits == 1:
+        pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
+    if replay_255_valid(alpha, eps, clip_min, clip_max):
+        frames = replay_pgd_255(clean_l, clean_r, pl, pr, eps=eps)
+    else:
+        frames = ((np.clip(xl, 0, 255).astype(np.uint8),
+                   np.clip(xr, 0, 255).astype(np.uint8))
+                  for xl, xr in replay_pgd(
+                      clean_l.astype(np.float32), clean_r.astype(np.float32),
+                      pl, pr, alpha=alpha, eps=eps, clip_min=clip_min,
+                      clip_max=clip_max))
+    for k, (xl, xr) in enumerate(frames):
+        save_attacked_images(batch, xl, xr, f"{prefix}_iters_{k + 1}",
+                             writer=writer)
+
+
+def save_attacked_images(batch: Dict, adv_left, adv_right, out_dir: str,
+                         writer: Optional[AsyncImageWriter] = None) -> None:
+    """Write uint8 RGB pairs as `out_dir/image_{2,3}/<id>.png`, cropped to
+    each frame's size before padding."""
+    if writer is None:
+        adv_left, adv_right = fetch_np(adv_left), fetch_np(adv_right)
+    for i, fid in enumerate(batch["frame_ids"]):
+        hw = batch["orig_hw"][i]
+        for sub, adv in (("image_2", adv_left), ("image_3", adv_right)):
+            path = os.path.join(out_dir, sub, fid + ".png")
+            if writer is not None:
+                writer.put(path, adv[i], crop_hw=hw)
+            else:
+                K.save_image(path, adv[i], crop_hw=hw)

@@ -1,0 +1,215 @@
+"""The port's kernel modules and model blocks against the JAX reference
+on CPU (the plain PyTorch versions; the CUDA kernels themselves are
+checked on the card by tests/test_torch_kernels_cuda.py and
+chip_smoke.py).
+
+Tolerances: forward values atol 1e-5 and gradients atol 1e-4 (fp32; the
+same arithmetic summed in other orders, with gradients summed over up to
+eight planes); resizes 1e-6 (measured agreement is within 5e-7).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.core import unfreeze
+
+import eval_driving_safety_tpu.ops.pallas_depthconv as jdtc
+from eval_driving_safety_tpu.models.dsgn import \
+    ConvBnRelu2p1D as JaxConvBnRelu2p1D
+from eval_driving_safety_tpu.ops.cost_volume import \
+    shift_along_width as jax_shift
+from eval_driving_safety_tpu.ops.pallas_psv import (build_psv_pallas,
+                                                    psv_warp as jax_psv_warp)
+from eval_driving_safety_tpu_torch.models.common import (resize_bilinear,
+                                                         resize_trilinear)
+from eval_driving_safety_tpu_torch.models.dsgn import ConvBnRelu2p1D
+from eval_driving_safety_tpu_torch.ops import _cuda
+from eval_driving_safety_tpu_torch.ops.cost_volume import shift_along_width
+from eval_driving_safety_tpu_torch.ops.depthconv import depth_tap_conv
+from eval_driving_safety_tpu_torch.ops.psv_warp import build_psv, psv_warp
+from eval_driving_safety_tpu_torch.utils.from_flax import \
+    dsgn_state_dict_from_flax
+
+T = torch.from_numpy
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------- (a) PSV
+
+# H = 5 and 12 are not multiples of the TPU kernel's 8-row tile; the
+# last disparities pass W - 1 (whole row masked) and 0 (no shift)
+PSV_CASES = [
+    ((5, 16, 4), [0.0, 0.25, 3.5, 7.999, 15.0, 15.5, 21.3]),
+    ((12, 24, 8), [1.0, 2.75, 11.125, 23.0, 40.0]),
+]
+
+
+@pytest.mark.parametrize("shape,disps", PSV_CASES)
+def test_psv_warp_matches_pallas_forward_and_grad(shape, disps):
+    rng = np.random.RandomState(0)
+    fr = rng.randn(*shape).astype(np.float32)
+    d = np.asarray(disps, np.float32)
+    g = rng.randn(len(disps), *shape).astype(np.float32)
+    want = _np(jax_psv_warp(jnp.asarray(fr), jnp.asarray(d)))
+    want_g = _np(jax.grad(lambda f: jnp.sum(jax_psv_warp(f, jnp.asarray(d))
+                                            * g))(jnp.asarray(fr)))
+    frt = T(fr)[None].requires_grad_(True)
+    got = psv_warp(frt, T(d)[None])
+    np.testing.assert_allclose(got[0].detach().numpy(), want, atol=1e-5)
+    (got_g,) = torch.autograd.grad((got[0] * T(g)).sum(), frt)
+    np.testing.assert_allclose(got_g[0].numpy(), want_g, atol=1e-4)
+
+
+@pytest.mark.parametrize("disp", [0.0, 2.5, 7.75, 15.0, 19.0])
+def test_shift_along_width_matches_jax(disp):
+    # the port's plain warp takes a batch of planes; one plane of one
+    # image is JAX's single-disparity shift
+    fr = np.random.RandomState(1).randn(3, 16, 4).astype(np.float32)
+    want = _np(jax_shift(jnp.asarray(fr), jnp.float32(disp)))
+    got = shift_along_width(T(fr)[None], torch.tensor([[disp]]))[0, 0]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_build_psv_matches_pallas_forward_and_grads():
+    rng = np.random.RandomState(2)
+    b, h, w, c = 2, 5, 24, 4
+    fl = rng.randn(b, h, w, c).astype(np.float32)
+    fr = rng.randn(b, h, w, c).astype(np.float32)
+    fu = np.array([180.0, 150.0], np.float32)
+    bl = np.array([0.54, 0.5], np.float32)
+    planes = np.linspace(2.0, 59.6, 7).astype(np.float32)
+    g = rng.randn(b, 7, h, w, 2 * c).astype(np.float32)
+
+    def jf(a, r):
+        return jnp.sum(build_psv_pallas(a, r, jnp.asarray(fu),
+                                        jnp.asarray(bl), jnp.asarray(planes),
+                                        4) * g)
+    want = _np(build_psv_pallas(jnp.asarray(fl), jnp.asarray(fr),
+                                jnp.asarray(fu), jnp.asarray(bl),
+                                jnp.asarray(planes), 4))
+    wgl, wgr = jax.grad(jf, argnums=(0, 1))(jnp.asarray(fl), jnp.asarray(fr))
+    tl, tr = T(fl).requires_grad_(True), T(fr).requires_grad_(True)
+    got = build_psv(tl, tr, T(fu), T(bl), T(planes), 4)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
+    gl, gr = torch.autograd.grad((got * T(g)).sum(), (tl, tr))
+    np.testing.assert_allclose(gl.numpy(), _np(wgl), atol=1e-4)
+    np.testing.assert_allclose(gr.numpy(), _np(wgr), atol=1e-4)
+
+
+# ---------------------------------------------------------- (b) depth conv
+
+def _dtc_inputs(d, c, f, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(2, d, 4, 8, c) * 0.5).astype(np.float32)
+    wk = (rng.randn(3, c, f) * 0.2).astype(np.float32)
+    inv = (rng.randn(f) * 0.5 + 1.0).astype(np.float32)
+    off = (rng.randn(f) * 0.2).astype(np.float32)
+    g = rng.randn(2, d, 4, 8, f).astype(np.float32)
+    return x, wk, inv, off, g
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("d", [1, 2, 6])
+def test_depth_tap_conv_matches_pallas(monkeypatch, d, relu):
+    # the JAX package runs its Pallas kernel in interpret mode off-TPU
+    monkeypatch.setattr(jdtc, "_FORCE_INTERPRET", True)
+    x, wk, inv, off, g = _dtc_inputs(d, 8, 16, seed=d)
+    args = [jnp.asarray(a) for a in (x, wk, inv, off)]
+    want = _np(jdtc.depth_tap_conv(*args, relu))
+    want_g = jax.grad(lambda *a: jnp.sum(jdtc.depth_tap_conv(*a, relu) * g),
+                      argnums=(0, 1, 2, 3))(*args)
+    targs = [T(a).requires_grad_(True) for a in (x, wk, inv, off)]
+    got = depth_tap_conv(*targs, relu=relu)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
+    got_g = torch.autograd.grad((got * T(g)).sum(), targs)
+    for name, a, b in zip(("dx", "dW", "d inv", "d off"), got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-4,
+                                   err_msg=name)
+
+
+# ------------------------------------------------- (c) resizes and blocks
+
+@pytest.mark.parametrize("src,dst", [
+    ((96, 312), (12, 39)), ((96, 312), (6, 19)), ((96, 312), (3, 9)),
+    ((24, 80), (3, 10)), ((24, 80), (1, 5)), ((24, 80), (1, 2)),
+    ((12, 39), (96, 312)), ((24, 80), (96, 320))])
+def test_resize_bilinear_matches_jax(src, dst):
+    x = np.random.RandomState(3).randn(1, *src, 5).astype(np.float32)
+    want = _np(jax.image.resize(x, (1, *dst, 5), "linear"))
+    np.testing.assert_allclose(resize_bilinear(T(x), *dst).numpy(), want,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [((3, 6, 20), (6, 12, 40)),
+                                     ((5, 7, 9), (9, 13, 17))])
+def test_resize_trilinear_matches_jax(src, dst):
+    x = np.random.RandomState(4).randn(1, *src, 4).astype(np.float32)
+    want = _np(jax.image.resize(x, (1, *dst, 4), "linear"))
+    np.testing.assert_allclose(resize_trilinear(T(x), dst).numpy(), want,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("stride,shape", [
+    (2, (1, 6, 8, 10, 4)),     # even sizes: Flax pads (0, 1)
+    (2, (1, 7, 9, 11, 4)),     # odd sizes: (1, 1)
+    (1, (2, 5, 6, 8, 4))])
+def test_conv_bn_relu_2p1d_matches_flax(stride, shape):
+    x = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    jm = JaxConvBnRelu2p1D(8, stride, depth_method="pallas")
+    params = unfreeze(jm.init(jax.random.PRNGKey(stride), jnp.asarray(x)))
+    # non-trivial BN statistics, so the folding is exercised
+    bn = params["params"]["FrozenBatchNorm_0"]
+    rng = np.random.RandomState(6)
+    for k, lo in (("scale", 0.5), ("bias", -0.3), ("mean", -0.2),
+                  ("var", 0.5)):
+        bn[k] = jnp.asarray(lo + rng.rand(8).astype(np.float32))
+    want = _np(jm.apply(params, jnp.asarray(x)))
+    tm = ConvBnRelu2p1D(4, 8, stride)
+    tm.load_state_dict(dsgn_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        got = tm(T(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# ------------------------------ wrappers: CPU or CUDA, nothing else
+
+def test_wrappers_refuse_other_devices():
+    fr = torch.empty(1, 2, 8, 4, device="meta")
+    with pytest.raises(ValueError):
+        psv_warp(fr, torch.zeros(1, 3, device="meta"))
+    with pytest.raises(ValueError):
+        depth_tap_conv(torch.empty(1, 2, 2, 2, 8, device="meta"),
+                       torch.empty(3, 8, 8), torch.empty(8), torch.empty(8))
+
+
+def test_launch_record_counts_kernel_launches_only():
+    """`count_launch` adds one per launch to the kernel's count and to its
+    (shape, dtype) entry; the plain versions that serve CPU tensors add
+    nothing."""
+    _cuda.reset_launches()
+    depth_tap_conv(torch.zeros(1, 2, 2, 2, 8), torch.zeros(3, 8, 8),
+                   torch.ones(8), torch.zeros(8))
+    psv_warp(torch.zeros(1, 2, 8, 4), torch.zeros(1, 3))
+    assert sum(_cuda.launches.values()) == 0 and not _cuda.launch_shapes
+    for _ in range(2):
+        _cuda.count_launch("depth_tap_conv_bwd", (1, 2, 4, 8, 8),
+                           torch.bfloat16)
+    assert _cuda.launches["depth_tap_conv_bwd"] == 2
+    assert _cuda.launch_shapes == {
+        ("depth_tap_conv_bwd", (1, 2, 4, 8, 8), "bfloat16"): 2}
+    _cuda.reset_launches()
+    assert sum(_cuda.launches.values()) == 0 and not _cuda.launch_shapes
+
+
+def test_kernel_build_is_keyed_by_source_hash():
+    paths = {n: _cuda.lib_path(n) for n in _cuda.SIGNATURES}
+    assert set(paths) == {"psv_warp", "depth_tap_conv"}
+    for name, p in paths.items():
+        assert p.parent == _cuda.BUILD_DIR and p.name.startswith(name + "-")
+    assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
