@@ -10,13 +10,20 @@ Phases (any failure ends the run with a non-zero exit):
      (one nvcc per source, all at once);
   2. hold each kernel against its plain PyTorch version on the card at the
      paper-scale (DSGNConfig.full()) shapes of the attack, in bf16 and
-     fp32, and time kernel, plain version and a library yardstick;
+     fp32, and time kernel, plain version and a library yardstick on two
+     clocks: `ms` is one call timed with CUDA events, host dispatch
+     included, and `device_ms` the card's own time for the call (calls
+     queued behind a sleep kernel, utils/cuda_timing.py); hold the bf16
+     depth-tap conv (forward
+     and dx) at the edges of its tiles and on misaligned views; time the
+     weight-gradient kernel alone (not on the attack path);
   3. run the tiny model in fp32 on the card and on the CPU with the same
      weights and inputs and compare the loss and the input gradients;
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
      (3 iterations), check the output sweep, that the kernels were
-     launched at the shapes phase 2 checked, and that --transfer full
-     writes the same PNGs; time the steady-state attack iteration and
+     launched at the shapes phase 2 checked, without alignment copies,
+     and that --transfer full writes the same PNGs; time the
+     steady-state attack iteration and
      profile one. The kernels' per-iteration times weight phase 2's
      per-shape times by the launches the wrappers recorded in this run.
 The line before the last is the kernels' JSON record; the last line is
@@ -70,7 +77,8 @@ def check(ok, what):
 
 def time_ms(fn, reps=10):
     """Median over `reps` of one call, timed with CUDA events after two
-    warm-up calls."""
+    warm-up calls. The card idles while the host dispatches inside the
+    call, so for a small kernel this is mostly host time."""
     import torch
     for _ in range(2):
         fn()
@@ -88,13 +96,27 @@ def time_ms(fn, reps=10):
     return times[len(times) // 2]
 
 
+TIME_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms",
+             "library_ms", "library_device_ms")
+
+
+def timed(kernel, plain, library):
+    """Kernel, plain version and library call, each on both clocks."""
+    from eval_driving_safety_tpu_torch.utils.cuda_timing import device_ms
+    t = {}
+    for pre, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        t[pre + "ms"] = time_ms(fn)
+        t[pre + "device_ms"] = device_ms(fn)
+    return t
+
+
 def max_err(got, want):
-    return float((got.float() - want.float()).abs().max())
+    return float((got.detach().float() - want.detach().float()).abs().max())
 
 
 def compare(name, got, want, rtol):
     err = max_err(got, want)
-    scale = max(float(want.float().abs().max()), 1e-30)
+    scale = max(float(want.detach().float().abs().max()), 1e-30)
     check(err <= rtol * scale and math.isfinite(err),
           f"{name}: max |kernel - plain| {err:.3g} > {rtol:.3g} x {scale:.3g}")
     return err
@@ -190,22 +212,21 @@ def check_psv(c, dtype_name, dev, per):
     shape = (1, d, h, w, ch)
     with torch.no_grad():
         per[("psv_warp_fwd", shape, dtype_name)] = dict(
-            err=e1, ms=time_ms(lambda: build_psv(fl, fr, fu, bl, planes, 4)),
-            plain_ms=time_ms(lambda: plain(fl, fr)),
-            library_ms=time_ms(lambda: lib(fl, fr)),
+            err=e1, **timed(lambda: build_psv(fl, fr, fu, bl, planes, 4),
+                            lambda: plain(fl, fr), lambda: lib(fl, fr)),
             bytes=fwd_bytes, ops=fwd_ops)
     per[("psv_warp_bwd", shape, dtype_name)] = dict(
-        err=e2,
-        ms=time_ms(lambda: torch.autograd.grad(kout, (kl, kr), gout,
-                                               retain_graph=True)),
-        plain_ms=time_ms(lambda: torch.autograd.grad(
-            pout, (pl_, pr_), gout, retain_graph=True)),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lout, (ll, lr), gout, retain_graph=True)),
+        err=e2, **timed(
+            lambda: torch.autograd.grad(kout, (kl, kr), gout,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(pout, (pl_, pr_), gout,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(lout, (ll, lr), gout,
+                                        retain_graph=True)),
         bytes=bwd_bytes, ops=fwd_ops + n_out // 2)
 
 
-def check_depthconv(cfg, dtype_name, dev, per):
+def check_depthconv(cfg, dtype_name, dev, per, wgrad):
     import torch
     import torch.nn.functional as F
     from eval_driving_safety_tpu_torch.ops.depthconv import (
@@ -238,8 +259,8 @@ def check_depthconv(cfg, dtype_name, dev, per):
         yp = reference_depth_tap_conv(xp, w, inv, off, relu=False)
         (dxk,) = torch.autograd.grad(yk, xk, dy, retain_graph=True)
         (dxp,) = torch.autograd.grad(yp, xp, dm, retain_graph=True)
-        e_b = e_dx = compare(f"depth_tap_conv_bwd dx {tag}", dxk, dxp,
-                             RTOL[dtype_name])
+        e_dx = compare(f"depth_tap_conv_bwd dx {tag}", dxk, dxp,
+                       RTOL[dtype_name])
         # full backward: dx, dW, d inv, d off
         ka = [t.clone().requires_grad_(True) for t in (x, w, inv, off)]
         pa = [t.clone().requires_grad_(True) for t in (x, w, inv, off)]
@@ -247,43 +268,146 @@ def check_depthconv(cfg, dtype_name, dev, per):
         yp_all = reference_depth_tap_conv(*pa, relu=False)
         kg = torch.autograd.grad(yk_all, ka, dy, retain_graph=True)
         pg = torch.autograd.grad(yp_all, pa, dm, retain_graph=True)
+        # K4's error covers dx, dW, d inv, d off (dx alone: e_dx); the
+        # weight-gradient kernel's covers dW, d inv, d off
+        e_b, e_w = e_dx, 0.0
         for name, a, p_ in zip(("dx", "dW", "d inv", "d off"), kg, pg):
             rt = RTOL[dtype_name] if name == "dx" else RTOL_GRID[dtype_name]
-            e_b = max(e_b, compare(f"depth_tap_conv_bwd {name} {tag}", a,
-                                   p_, rt))
+            e = compare(f"depth_tap_conv_bwd {name} {tag}", a, p_, rt)
+            e_b = max(e_b, e)
+            e_w = e_w if name == "dx" else max(e_w, e)
+        # the weight-gradient kernel alone: x needs no gradient
+        kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+        pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+        yk_w = depth_tap_conv(x, *kw)
+        yp_w = reference_depth_tap_conv(x, *pw)
 
         # library yardsticks: the conv alone, as cuDNN computes it
         xc = x.permute(0, 4, 1, 2, 3)                   # (B, C, D, N, 1)
         wc = w.permute(2, 1, 0)[..., None, None]        # (F, C, 3, 1, 1)
         dyc = dy.permute(0, 4, 1, 2, 3)
-        lib_f = time_ms(lambda: F.conv3d(xc, wc, padding=(1, 0, 0)))
-        lib_b = time_ms(lambda: torch.ops.aten.convolution_backward(
-            dyc, xc, wc, None, [1, 1, 1], [1, 0, 0], [1, 1, 1], False,
-            [0, 0, 0], 1, [True, False, False]))
         with torch.no_grad():
-            ms_f = time_ms(lambda: depth_tap_conv(x, w, inv, off))
-            pms_f = time_ms(lambda: reference_depth_tap_conv(x, w, inv, off))
-        ms_b = time_ms(lambda: torch.autograd.grad(yk, xk, dy,
-                                                   retain_graph=True))
+            t_f = timed(lambda: depth_tap_conv(x, w, inv, off),
+                        lambda: reference_depth_tap_conv(x, w, inv, off),
+                        lambda: F.conv3d(xc, wc, padding=(1, 0, 0)))
         # the plain version's own backward (ReLU included) for its time
         yp_relu = reference_depth_tap_conv(xp, w, inv, off)
-        pms_b = time_ms(lambda: torch.autograd.grad(yp_relu, xp, dy,
-                                                    retain_graph=True))
+        t_b = timed(
+            lambda: torch.autograd.grad(yk, xk, dy, retain_graph=True),
+            lambda: torch.autograd.grad(yp_relu, xp, dy, retain_graph=True),
+            lambda: torch.ops.aten.convolution_backward(
+                dyc, xc, wc, None, [1, 1, 1], [1, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, [True, False, False]))
         ms_full = time_ms(lambda: torch.autograd.grad(yk_all, ka, dy,
                                                       retain_graph=True))
+        t_w = timed(
+            lambda: torch.autograd.grad(yk_w, kw, dy, retain_graph=True),
+            lambda: torch.autograd.grad(yp_w, pw, dy, retain_graph=True),
+            lambda: torch.ops.aten.convolution_backward(
+                dyc, xc, wc, None, [1, 1, 1], [1, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, [False, True, False]))
         vol_in, vol_out = b * d * n * c, b * d * n * f
         small = (3 * c * f + 2 * f) * isz
         conv_ops = 2 * 3 * c * f * b * d * n
         shape = (b, d, n, c, f)
         per[("depth_tap_conv_fwd", shape, dtype_name)] = dict(
-            err=e_f, ms=ms_f, plain_ms=pms_f, library_ms=lib_f,
+            err=e_f, **t_f,
             bytes=(vol_in + vol_out) * isz + small, ops=conv_ops)
         # dx reads y and dy, writes dx
         per[("depth_tap_conv_bwd", shape, dtype_name)] = dict(
-            err=e_b, err_dx=e_dx, ms=ms_b, plain_ms=pms_b, library_ms=lib_b,
-            full_backward_ms=ms_full,
+            err=e_b, err_dx=e_dx, **t_b, full_backward_ms=ms_full,
             bytes=(2 * vol_out + vol_in) * isz + small, ops=conv_ops)
-        del yk, yp, yp_relu, yk_all, yp_all
+        # dW, d inv, d off read x, y and dy and write f32 sums; d inv
+        # needs z, which is recomputed from x: two convs' operations
+        wgrad[("depth_tap_conv_wgrad", shape, dtype_name)] = dict(
+            err=e_w, **t_w,
+            bytes=(2 * vol_out + vol_in) * isz + small + (3 * c + 2) * f * 4,
+            ops=2 * conv_ops)
+        del yk, yp, yp_relu, yk_all, yp_all, yk_w, yp_w
+
+
+def check_depthconv_edges(dev):
+    """The bf16 depth-tap conv, forward and dx, against the plain version
+    at the edges of the tensor-core kernels' tiles: N ragged against the
+    64-pixel tile, D of 1, 2, 3, D split into chunks across blocks with a
+    last chunk of one plane (D = 13: chunks of 4 planes at widths up to
+    32, of 3 at 64), C != F, widths of 8 (padded to the MMA's K of 16),
+    ReLU on and off."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops.depthconv import (
+        depth_tap_conv, reference_depth_tap_conv)
+    dt, rtol = torch.bfloat16, RTOL["bfloat16"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [(1, 1, 35, 32, 32), (2, 2, 35, 64, 32), (1, 3, 65, 32, 64),
+             (1, 13, 35, 64, 32), (2, 13, 65, 8, 16), (1, 5, 65, 16, 8),
+             (1, 4, 129, 64, 64), (1, 2, 1, 8, 8), (1, 9, 2561, 32, 32),
+             (1, 7, 130, 16, 64)]
+    worst = 0.0
+    for b, d, n, c, f in cases:
+        x = (torch.randn(b, d, n, 1, c, device=dev, generator=g) * 0.5).to(dt)
+        w = (torch.randn(3, c, f, device=dev, generator=g) / c ** 0.5).to(dt)
+        inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
+        off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
+        dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
+        for relu in (True, False):
+            tag = f"{(b, d, n, c, f)} relu={relu} bfloat16"
+            xk = x.clone().requires_grad_(True)
+            xp = x.clone().requires_grad_(True)
+            y = depth_tap_conv(xk, w, inv, off, relu)
+            y_ref = reference_depth_tap_conv(xp, w, inv, off, relu)
+            compare(f"depth_tap_conv_fwd edge {tag}", y, y_ref, rtol)
+            # dx under the kernel's own ReLU mask, as in check_depthconv
+            dm = dy * (y.detach() > 0) if relu else dy
+            yl = reference_depth_tap_conv(xp, w, inv, off, relu=False)
+            (dxk,) = torch.autograd.grad(y, xk, dy)
+            (dxp,) = torch.autograd.grad(yl, xp, dm)
+            compare(f"depth_tap_conv_bwd dx edge {tag}", dxk, dxp, rtol)
+            for a_, r_ in ((y, y_ref), (dxk, dxp)):
+                worst = max(worst, max_err(a_, r_) / max(
+                    float(r_.detach().float().abs().max()), 1e-30))
+    copies = misaligned_views(dev)
+    log(json.dumps({"depthconv_bf16_edges": {
+        "cases": len(cases) * 2, "max_err_over_max_ref": worst,
+        "rtol": rtol, "misaligned_view_copies": copies}}))
+
+
+def offset_view(t, requires_grad=False):
+    """A copy of `t` as a view that starts one element past an aligned
+    allocation, so its data is not 16-byte aligned."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf.requires_grad_(requires_grad)[1:].view(t.shape)
+
+
+def misaligned_views(dev):
+    """The bf16 depth-tap conv on x, w and dy given as misaligned views:
+    the wrapper copies each once, counted, and forward and dx equal those
+    of aligned inputs bit for bit. Returns the copies counted."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.ops.depthconv import depth_tap_conv
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(1, 5, 13, 5, 32, device=dev, generator=g) * 0.5).to(dt)
+    w = (torch.randn(3, 32, 32, device=dev, generator=g) / 32 ** 0.5).to(dt)
+    inv = (1 + 0.2 * torch.randn(32, device=dev, generator=g)).to(dt)
+    off = (0.1 * torch.randn(32, device=dev, generator=g)).to(dt)
+    dy = torch.randn(1, 5, 13, 5, 32, device=dev, generator=g).to(dt)
+    xa = x.clone().requires_grad_(True)
+    ya = depth_tap_conv(xa, w, inv, off)
+    (dxa,) = torch.autograd.grad(ya, xa, dy)
+    xm, wm, dym = offset_view(x, True), offset_view(w), offset_view(dy)
+    check(all(t.data_ptr() % 16 for t in (xm, wm, dym)),
+          "offset views are aligned")
+    before = _cuda.align_copies["depth_tap_conv"]
+    ym = depth_tap_conv(xm, wm, inv, off)
+    (dxm,) = torch.autograd.grad(ym, xm, dym)
+    copies = _cuda.align_copies["depth_tap_conv"] - before
+    check(copies == 3, f"misaligned x, w, dy: {copies} copies, not 3")
+    check(torch.equal(ym, ya) and torch.equal(dxm, dxa),
+          "misaligned views give other results than aligned inputs")
+    return copies
 
 
 def per_iteration(per, counts, dtype_name):
@@ -295,13 +419,14 @@ def per_iteration(per, counts, dtype_name):
         if dt != dtype_name:
             continue
         n = counts[(name, shape)]
-        r = rec.setdefault(name, dict(err=0.0, err_dx=0.0, ms=0.0,
-                                      plain_ms=0.0, library_ms=0.0, bytes=0,
-                                      ops=0, launches_per_iter=0))
-        r["err"] = max(r["err"], v["err"])
-        r["err_dx"] = max(r["err_dx"], v.get("err_dx", 0.0))
-        for key in ("ms", "plain_ms", "library_ms", "bytes", "ops"):
-            r[key] += n * v[key]
+        r = rec.setdefault(name, dict(err=0.0, bytes=0, ops=0,
+                                      launches_per_iter=0))
+        for key in ("err", "err_dx"):
+            if key in v:
+                r[key] = max(r.get(key, 0.0), v[key])
+        for key in (*TIME_KEYS, "full_backward_ms", "bytes", "ops"):
+            if key in v:
+                r[key] = r.get(key, 0) + n * v[key]
         r["launches_per_iter"] += n
     return rec
 
@@ -436,6 +561,10 @@ def the_slice(tmp, card, dev, scale="paper"):
     shapes = dict(_cuda.launch_shapes)
     check(all(v > 0 for v in launches.values()),
           f"the paper-scale sweep missed a kernel: {launches}")
+    # no input of the sweep needed a copy to meet a kernel's alignment:
+    # every byte the kernels move is in their timed cost
+    copies = dict(_cuda.align_copies)
+    check(not copies, f"the sweep made alignment copies: {copies}")
     check(len(losses) == len(ids) and all(
         len(l) == iters and all(math.isfinite(v) for v in l)
         for l in losses), f"losses not finite: {losses}")
@@ -470,7 +599,8 @@ def the_slice(tmp, card, dev, scale="paper"):
         "signs_run_s": t_signs, "full_run_s": t_full,
         "pairs_per_s_signs_run": n_pairs / t_signs,
         "attack_iters_per_s_signs_run": n_pairs * iters / t_signs,
-        "losses": losses, "launches": launches, "card": card}}))
+        "losses": losses, "launches": launches,
+        "align_copies": sum(copies.values()), "card": card}}))
     return launches, shapes, n_pairs * iters
 
 
@@ -564,11 +694,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. kernels vs plain versions at the paper-scale shapes
-    per = {}
+    per, wgrad = {}, {}
     for dtype_name in ("bfloat16", "float32"):
         check_psv(full, dtype_name, dev, per)
-        check_depthconv(full, dtype_name, dev, per)
+        check_depthconv(full, dtype_name, dev, per, wgrad)
         torch.cuda.empty_cache()
+    check_depthconv_edges(dev)
 
     # 3. tiny model: card vs CPU
     tiny_card_vs_cpu(dev)
@@ -583,28 +714,40 @@ def main():
     # the slice launched each kernel at exactly the shapes phase 2 timed
     # (all in the model's dtype), the same number of times per iteration
     ran = {(k, s) for k, s, _ in shapes}
-    timed = {(k, s) for k, s, dt in per if dt == full.dtype}
-    check(ran == timed and {dt for _, _, dt in shapes} == {full.dtype},
+    phase2 = {(k, s) for k, s, dt in per if dt == full.dtype}
+    check(ran == phase2 and {dt for _, _, dt in shapes} == {full.dtype},
           f"slice launch shapes {sorted(shapes)} != phase-2 shapes "
-          f"{sorted(timed)}")
+          f"{sorted(phase2)}")
     check(all(n % n_iters == 0 for n in shapes.values()),
           f"slice launches {shapes} not a multiple of {n_iters} iterations")
     counts = {(k, s): n // n_iters for (k, s, _), n in shapes.items()}
+    # the weight gradient runs once per dx launch when weights need one
+    wcounts = {("depth_tap_conv_wgrad", s): n for (k, s), n in counts.items()
+               if k == "depth_tap_conv_bwd"}
     detail = []
-    for (k, s, dt), v in per.items():
+    for (k, s, dt), v in [*per.items(), *wgrad.items()]:
         row = dict(kernel=k, shape=list(s), dtype=dt,
-                   launches_per_iter=counts[(k, s)], bound_ms=bound(v, dt)[0])
-        row.update((m, v[m]) for m in ("err", "ms", "plain_ms", "library_ms",
+                   launches_per_iter=counts.get((k, s), 0),
+                   bound_ms=bound(v, dt)[0])
+        row.update((m, v[m]) for m in ("err", "err_dx", *TIME_KEYS,
                                        "full_backward_ms") if m in v)
         detail.append(row)
     log(json.dumps({"kernel_detail": detail}))
+    log(json.dumps({"kernel_wgrad_off_path": {
+        dt: dict(max_abs_err=r["err"], **{m: r[m] for m in TIME_KEYS},
+                 bound_ms=bound(r, dt)[0], bound_by=bound(r, dt)[1],
+                 launches_if_weights_had_grad=r["launches_per_iter"])
+        for dt in ("bfloat16", "float32")
+        for r in per_iteration(wgrad, wcounts, dt).values()}}))
     log(json.dumps({"kernel_fp32": {
-        k: dict(max_abs_err=v["err"], ms=v["ms"], plain_ms=v["plain_ms"],
-                library_ms=v["library_ms"], bound_ms=bound(v, "float32")[0])
+        k: dict(max_abs_err=v["err"], **{m: v[m] for m in TIME_KEYS},
+                bound_ms=bound(v, "float32")[0])
         for k, v in per_iteration(per, counts, "float32").items()}}))
 
     # times, bytes and operations per attack iteration: each shape's
-    # median times its launches per iteration
+    # time times its launches per iteration. `ms`, `plain_ms` and
+    # `library_ms` are CUDA-event call times, the `*device_ms` the card's
+    # own; compare a kernel with its yardsticks on one clock.
     rec = per_iteration(per, counts, full.dtype)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -616,6 +759,11 @@ def main():
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "bound_share": b_ms / r["ms"],
+            "device_bound_share": b_ms / r["device_ms"],
             "launches_per_attack_iter": r["launches_per_iter"],
             # K4: max_abs_err covers dx, dW, d inv, d off; dx alone here
             **({"max_abs_err_dx": r["err_dx"]}

@@ -9,7 +9,8 @@ once; otherwise a library is built at the first launch that needs it.
 
 Each launcher returns a CUDA status; `launch` raises on anything but 0.
 `launches` counts the launches of each kernel and `launch_shapes` the
-launches of each (kernel, shape, dtype).
+launches of each (kernel, shape, dtype); `align_copies` counts the copies
+a wrapper made of an input to meet a kernel's alignment, per op.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ SIGNATURES = {
 launches = {"psv_warp_fwd": 0, "psv_warp_bwd": 0,
             "depth_tap_conv_fwd": 0, "depth_tap_conv_bwd": 0}
 launch_shapes: collections.Counter = collections.Counter()
+align_copies: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -61,6 +63,7 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     launch_shapes.clear()
+    align_copies.clear()
 
 
 def count_launch(kernel: str, shape, dtype: torch.dtype) -> None:

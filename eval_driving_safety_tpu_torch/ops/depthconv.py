@@ -14,10 +14,20 @@ every depth D (1 and 2 included) and C, F in {8, 16, 32, 64}.
 tensors and as the kernels' yardstick. A CUDA tensor goes through the
 kernels or the call raises.
 
+bf16 (the attack path) runs the forward and dx on tensor cores
+(mma.sync fed by cp.async, one block walking the planes of a pixel
+tile); dx forms dz = bf16(dy * 1[y > 0] * inv) as the TPU kernel does,
+one rounding more than the plain version, which keeps dz in f32. fp32
+runs on CUDA-core f32 FMAs, so the tiny model matches the CPU closely.
+The bf16 kernels copy 16-byte chunks, so a bf16 input whose view starts
+off a 16-byte boundary is first copied (counted in `_cuda.align_copies`;
+the model's inputs never need it).
+
 The backward always computes dx; dW and the coefficient gradients
-(a second kernel, reduced over the whole grid with f32 atomics) run
-only when autograd asks for them, which the attack never does. Each of
-the two counts as one launch of `depth_tap_conv_bwd`.
+(one more kernel, f32 FMAs in both dtypes, reduced over the whole grid
+with f32 atomics) run only when autograd asks for them, which the
+attack never does. The dx and the dW kernel each count as one launch
+of `depth_tap_conv_bwd`.
 """
 from __future__ import annotations
 
@@ -27,6 +37,15 @@ import torch.nn.functional as F
 from eval_driving_safety_tpu_torch.ops import _cuda
 
 CHANNELS = (8, 16, 32, 64)
+
+
+def _aligned(t):
+    """t, or, for the bf16 kernels' 16-byte copies, a copy of it where its
+    data does not start on 16 bytes; `_cuda.align_copies` counts each."""
+    if t.dtype != torch.bfloat16 or t.data_ptr() % 16 == 0:
+        return t
+    _cuda.align_copies["depth_tap_conv"] += 1
+    return t.clone()
 
 
 def reference_depth_tap_conv(x5, w, inv, off, relu: bool = True):
@@ -72,7 +91,7 @@ class _DepthTapConv(torch.autograd.Function):
         x4, w, inv, y = ctx.saved_tensors
         b, d, n, c = x4.shape
         f = w.shape[-1]
-        dy = dy.contiguous()
+        dy = _aligned(dy.contiguous())
         code = _cuda.DTYPE_CODES[x4.dtype]
         need_x, need_w, need_inv, need_off = ctx.needs_input_grad[:4]
         dx = dw = dinv = doff = None
@@ -110,8 +129,8 @@ def depth_tap_conv(x5, w, inv, off, relu: bool = True):
     if x5.device.type != "cuda":
         raise ValueError(f"depth_tap_conv: unsupported device {x5.device}")
     b, d, h, wd, c = x5.shape
-    y = _DepthTapConv.apply(x5.reshape(b, d, h * wd, c),
-                            w.to(x5.dtype).contiguous(),
+    y = _DepthTapConv.apply(_aligned(x5.reshape(b, d, h * wd, c)),
+                            _aligned(w.to(x5.dtype).contiguous()),
                             inv.to(x5.dtype).contiguous(),
                             off.to(x5.dtype).contiguous(), bool(relu))
     return y.reshape(b, d, h, wd, w.shape[-1])
