@@ -16,13 +16,18 @@ Phases (any failure ends the run with a non-zero exit):
      queued behind a sleep kernel, utils/cuda_timing.py); hold the bf16
      depth-tap conv (forward
      and dx) at the edges of its tiles and on misaligned views; time the
-     weight-gradient kernel alone (not on the attack path);
+     weight-gradient kernel alone (not on the attack path); hold K1 and K2
+     (forward and backward PSV warp) at the edges of their design: other
+     channel counts and access widths, ragged and long rows, per-image
+     and out-of-range disparities, the unfused warp, misaligned views and
+     a non-contiguous gradient;
   3. run the tiny model in fp32 on the card and on the CPU with the same
      weights and inputs and compare the loss and the input gradients;
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
      (3 iterations), check the output sweep, that the kernels were
-     launched at the shapes phase 2 checked, without alignment copies,
-     and that --transfer full writes the same PNGs; time the
+     launched at the shapes phase 2 checked, K1 and K2 with 16-byte
+     accesses only, without alignment or contiguity copies, and that
+     --transfer full writes the same PNGs; time the
      steady-state attack iteration and
      profile one. The kernels' per-iteration times weight phase 2's
      per-shape times by the launches the wrappers recorded in this run.
@@ -371,6 +376,133 @@ def check_depthconv_edges(dev):
         "rtol": rtol, "misaligned_view_copies": copies}}))
 
 
+def edge_disparities(b, w, dev):
+    """(b, 7) f32 disparities, other ones per image: none, whole, W - 1,
+    past the row (W + 4.5), negative (-0.5) and fractional ones."""
+    import torch
+    rows = [[0.0, 3.0, w - 1.0, w + 4.5, -0.5, 2.25, 17.6],
+            [1.5, 0.0, 5.0, w - 1.0, 40.25, -0.5, 0.75]]
+    return torch.tensor(rows[:b], dtype=torch.float32, device=dev)
+
+
+def psv_pair(b, h, w, c, dt, dev, g, make=lambda t: t):
+    """Seeded fl, fr (B, H, W, C) through `make` (a view maker), leaves."""
+    import torch
+    return [make(torch.randn(b, h, w, c, device=dev, generator=g).to(dt))
+            .detach().requires_grad_(True) for _ in range(2)]
+
+
+def check_psv_edges(dev):
+    """K1 and K2 against the plain version at the edges of their design,
+    in bf16 and fp32: C of 4, 8, 12, 32 and 64 (8- and 16-byte accesses),
+    W ragged against the backward's pixel tiles, B = 2 with other
+    disparities per image, disparities 0, whole, W - 1, W + 4.5 and -0.5,
+    a long row (W = 1000), and the unfused warp; then misaligned views,
+    which take a narrower access and no copy, and a non-contiguous
+    gradient, copied once and counted; both must give the aligned,
+    contiguous result bit for bit."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops.cost_volume import \
+        shift_along_width
+    from eval_driving_safety_tpu_torch.ops.psv_warp import (
+        psv_from_disparities, psv_warp)
+    cases = [(1, 3, 77, 4), (2, 5, 77, 8), (1, 4, 100, 12), (2, 3, 77, 32),
+             (1, 2, 131, 64), (1, 1, 1000, 64)]
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst, n = 0.0, 0
+    for dtype_name in ("bfloat16", "float32"):
+        dt, rtol = getattr(torch, dtype_name), RTOL[dtype_name]
+        for b, h, w, c in cases:
+            tag = f"{(b, h, w, c)} {dtype_name}"
+            disps = edge_disparities(b, w, dev)
+            d = disps.shape[1]
+            kl, kr = psv_pair(b, h, w, c, dt, dev, g)
+            pl_, pr_ = (t.detach().clone().requires_grad_(True)
+                        for t in (kl, kr))
+            gout = torch.randn(b, d, h, w, 2 * c, device=dev,
+                               generator=g).to(dt)
+            out = psv_from_disparities(kl, kr, disps)
+            ref = torch.cat([pl_[:, None].expand(-1, d, -1, -1, -1),
+                             shift_along_width(pr_, disps)], dim=-1)
+            kg = torch.autograd.grad(out, (kl, kr), gout)
+            pg = torch.autograd.grad(ref, (pl_, pr_), gout)
+            # the unfused warp (psv_warp), forward and backward
+            uk = psv_warp(kr, disps)
+            up = shift_along_width(pr_, disps)
+            gu = gout[..., c:].contiguous()
+            (ugk,) = torch.autograd.grad(uk, kr, gu)
+            (ugp,) = torch.autograd.grad(up, pr_, gu)
+            for name, a_, r_ in (("psv_warp_fwd", out, ref),
+                                 ("psv_warp_bwd dfl", kg[0], pg[0]),
+                                 ("psv_warp_bwd dfr", kg[1], pg[1]),
+                                 ("psv_warp_fwd unfused", uk, up),
+                                 ("psv_warp_bwd unfused", ugk, ugp)):
+                compare(f"{name} edge {tag}", a_, r_, rtol)
+                worst = max(worst, max_err(a_, r_) / max(
+                    float(r_.detach().float().abs().max()), 1e-30))
+                n += 1
+    views = psv_misaligned_views(dev)
+    log(json.dumps({"psv_edges": {
+        "checks": n, "max_err_over_max_ref": worst,
+        "rtol": RTOL, "views": views}}))
+
+
+def psv_misaligned_views(dev):
+    """Fused PSV forward and backward on fl, fr and the gradient given as
+    misaligned views, and on a non-contiguous gradient: the same bits as
+    from aligned, contiguous inputs; the views take a narrower access and
+    no copy, the non-contiguous gradient one counted copy."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.ops.psv_warp import \
+        psv_from_disparities
+    rec = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        b, h, w, c = 1, 3, 77, 32
+        disps = edge_disparities(b, w, dev)
+        gseed = torch.Generator(device=dev)
+
+        def run(make, make_g):
+            gseed.manual_seed(5)
+            kl, kr = psv_pair(b, h, w, c, dt, dev, gseed, make)
+            gout = torch.randn(b, disps.shape[1], h, w, 2 * c, device=dev,
+                               generator=gseed).to(dt)
+            out = psv_from_disparities(kl, kr, disps)
+            return (out, *torch.autograd.grad(out, (kl, kr), make_g(gout)))
+
+        def noncontiguous(t):
+            nc = torch.empty(t.shape[:-2] + t.shape[-1:] + t.shape[-2:-1],
+                             dtype=t.dtype, device=t.device).transpose(-1, -2)
+            return nc.copy_(t)
+
+        keep = lambda t: t
+        _cuda.reset_launches()
+        want = run(keep, keep)
+        check(set(_cuda.launch_widths) == {("psv_warp_fwd", 16),
+                                           ("psv_warp_bwd", 16)},
+              f"aligned views: widths {dict(_cuda.launch_widths)}")
+        _cuda.reset_launches()
+        got = run(offset_view, offset_view)
+        widths = sorted(_cuda.launch_widths)
+        check(all(wd < 16 for _, wd in widths) and not _cuda.align_copies,
+              f"misaligned views: widths {widths}, copies "
+              f"{dict(_cuda.align_copies)}")
+        check(all(torch.equal(a, r) for a, r in zip(got, want)),
+              f"misaligned views give other PSV results ({dtype_name})")
+        _cuda.reset_launches()
+        got = run(keep, noncontiguous)
+        copies = dict(_cuda.align_copies)
+        check(copies == {"psv_warp": 1},
+              f"non-contiguous gradient: copies {copies}, not 1")
+        check(all(torch.equal(a, r) for a, r in zip(got, want)),
+              f"a non-contiguous gradient gives other results ({dtype_name})")
+        rec[dtype_name] = {"misaligned_widths": [list(x) for x in widths],
+                           "noncontiguous_copies": copies["psv_warp"]}
+    _cuda.reset_launches()
+    return rec
+
+
 def offset_view(t, requires_grad=False):
     """A copy of `t` as a view that starts one element past an aligned
     allocation, so its data is not 16-byte aligned."""
@@ -559,10 +691,15 @@ def the_slice(tmp, card, dev, scale="paper"):
         "--out_prefix", os.path.join(tmp, "signs", "dsgn_pgd")])
     launches = dict(_cuda.launches)
     shapes = dict(_cuda.launch_shapes)
+    widths = dict(_cuda.launch_widths)
     check(all(v > 0 for v in launches.values()),
           f"the paper-scale sweep missed a kernel: {launches}")
-    # no input of the sweep needed a copy to meet a kernel's alignment:
-    # every byte the kernels move is in their timed cost
+    # K1 and K2 ran their 16-byte variant only
+    check({k for k, _ in widths} == {"psv_warp_fwd", "psv_warp_bwd"}
+          and {wd for _, wd in widths} == {16},
+          f"the sweep's PSV access widths {widths}, not 16 bytes only")
+    # no input of the sweep needed a copy to meet a kernel's alignment or
+    # layout: every byte the kernels move is in their timed cost
     copies = dict(_cuda.align_copies)
     check(not copies, f"the sweep made alignment copies: {copies}")
     check(len(losses) == len(ids) and all(
@@ -600,8 +737,9 @@ def the_slice(tmp, card, dev, scale="paper"):
         "pairs_per_s_signs_run": n_pairs / t_signs,
         "attack_iters_per_s_signs_run": n_pairs * iters / t_signs,
         "losses": losses, "launches": launches,
+        "vector_bytes": {f"{k} {wd}": v for (k, wd), v in widths.items()},
         "align_copies": sum(copies.values()), "card": card}}))
-    return launches, shapes, n_pairs * iters
+    return launches, shapes, widths, n_pairs * iters
 
 
 def steady_state(cfg, dev, card):
@@ -700,6 +838,7 @@ def main():
         check_depthconv(full, dtype_name, dev, per, wgrad)
         torch.cuda.empty_cache()
     check_depthconv_edges(dev)
+    check_psv_edges(dev)
 
     # 3. tiny model: card vs CPU
     tiny_card_vs_cpu(dev)
@@ -707,7 +846,7 @@ def main():
 
     # 4. the slice at paper scale, then steady state
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, shapes, n_iters = the_slice(tmp, card, dev)
+        launches, shapes, widths, n_iters = the_slice(tmp, card, dev)
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
 
@@ -768,6 +907,9 @@ def main():
             # K4: max_abs_err covers dx, dW, d inv, d off; dx alone here
             **({"max_abs_err_dx": r["err_dx"]}
                if name == "depth_tap_conv_bwd" else {}),
+            # K1, K2: the access widths (bytes) the sweep launched
+            **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
+               if name.startswith("psv") else {}),
             "dtype": full.dtype})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

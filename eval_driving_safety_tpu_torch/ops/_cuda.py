@@ -8,9 +8,11 @@ is rebuilt at its next use. `build_all()` starts one nvcc per source at
 once; otherwise a library is built at the first launch that needs it.
 
 Each launcher returns a CUDA status; `launch` raises on anything but 0.
-`launches` counts the launches of each kernel and `launch_shapes` the
-launches of each (kernel, shape, dtype); `align_copies` counts the copies
-a wrapper made of an input to meet a kernel's alignment, per op.
+`launches` counts the launches of each kernel, `launch_shapes` the
+launches of each (kernel, shape, dtype) and `launch_widths` those of each
+(kernel, access width in bytes) where a wrapper picks the width;
+`align_copies` counts the copies a wrapper made of an input to meet a
+kernel's alignment or layout, per op.
 """
 from __future__ import annotations
 
@@ -36,8 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every launcher, per library (all return int status)
 SIGNATURES = {
     "psv_warp": {
-        "psv_warp_forward": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "psv_warp_backward": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "psv_warp_forward": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
+        "psv_warp_backward": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
     },
     "depth_tap_conv": {
         "dtc_forward": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -53,6 +57,7 @@ SIGNATURES = {
 launches = {"psv_warp_fwd": 0, "psv_warp_bwd": 0,
             "depth_tap_conv_fwd": 0, "depth_tap_conv_bwd": 0}
 launch_shapes: collections.Counter = collections.Counter()
+launch_widths: collections.Counter = collections.Counter()
 align_copies: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -63,15 +68,20 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     launch_shapes.clear()
+    launch_widths.clear()
     align_copies.clear()
 
 
-def count_launch(kernel: str, shape, dtype: torch.dtype) -> None:
-    """Record one launch of `kernel` at `shape`; wrappers call this right
+def count_launch(kernel: str, shape, dtype: torch.dtype,
+                 width: int | None = None) -> None:
+    """Record one launch of `kernel` at `shape` (and at an access width of
+    `width` bytes, where the wrapper chose one); wrappers call this right
     after each `launch` and nowhere else."""
     launches[kernel] += 1
     launch_shapes[(kernel, tuple(int(s) for s in shape),
                    str(dtype).removeprefix("torch."))] += 1
+    if width is not None:
+        launch_widths[(kernel, int(width))] += 1
 
 
 def nvcc_path() -> str:

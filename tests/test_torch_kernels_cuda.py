@@ -7,8 +7,9 @@ card. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports no JAX
 fp32 with TF32 off. Tolerances: forward atol 1e-5 (the same f32
 arithmetic, with FMA contraction), gradients atol 1e-4 (summed over the
 planes in another order, dW/d inv/d off over the whole grid with
-atomics). The depth-tap conv is also held in bf16, at 2^-7 x the largest
-reference magnitude (one bf16 rounding step of either side).
+atomics). The depth-tap conv and the PSV warp are also held in bf16, at
+2^-7 x the largest reference magnitude (one bf16 rounding step of either
+side).
 """
 import numpy as np
 import pytest
@@ -17,7 +18,10 @@ import torch
 from eval_driving_safety_tpu_torch.ops import _cuda
 from eval_driving_safety_tpu_torch.ops.depthconv import (
     depth_tap_conv, reference_depth_tap_conv)
-from eval_driving_safety_tpu_torch.ops.psv_warp import build_psv, psv_warp
+from eval_driving_safety_tpu_torch.ops.cost_volume import shift_along_width
+from eval_driving_safety_tpu_torch.ops.psv_warp import (build_psv,
+                                                        psv_from_disparities,
+                                                        psv_warp)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +62,89 @@ def test_psv_kernels_match_plain(dev, h, w, c):
     torch.testing.assert_close(
         psv_warp(k[1][:1].detach(), disps.to(dev)).cpu(),
         psv_warp(p[1][:1].detach(), disps), atol=1e-5, rtol=0)
+
+
+def _edge_disparities(b, w):
+    """Other disparities per image: none, whole, W - 1, past the row,
+    negative and fractional ones."""
+    rows = [[0.0, 3.0, w - 1.0, w + 4.5, -0.5, 2.25, 17.6],
+            [1.5, 0.0, 5.0, w - 1.0, 40.25, -0.5, 0.75]]
+    return torch.tensor(rows[:b])
+
+
+def _assert_close(got, want, dtype, atol32):
+    atol = atol32 if dtype == "float32" else \
+        2.0 ** -7 * float(want.detach().float().abs().max())
+    torch.testing.assert_close(got.detach().cpu().float(),
+                               want.detach().float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c", [
+    # C = 4, 8, 12, 32, 64: 8- and 16-byte accesses; W = 77 and 131 are
+    # ragged against every backward tile; W = 1000 is a long row
+    (1, 3, 77, 4), (2, 5, 77, 8), (1, 4, 100, 12), (2, 3, 77, 32),
+    (1, 2, 131, 64), (1, 1, 1000, 64)])
+def test_psv_kernels_at_their_edges(dev, b, h, w, c, dtype):
+    rng = np.random.RandomState(c)
+    dt = getattr(torch, dtype)
+    fl_np, fr_np = (rng.randn(b, h, w, c).astype(np.float32)
+                    for _ in range(2))
+    disps = _edge_disparities(b, w)
+    g = torch.from_numpy(rng.randn(b, disps.shape[1], h, w, 2 * c)
+                         .astype(np.float32)).to(dt)
+    k = [torch.from_numpy(a).to(dev, dt).requires_grad_(True)
+         for a in (fl_np, fr_np)]
+    p = [torch.from_numpy(a).to(dt).requires_grad_(True)
+         for a in (fl_np, fr_np)]
+    _cuda.reset_launches()
+    got = psv_from_disparities(*k, disps.to(dev))
+    want = psv_from_disparities(*p, disps)
+    _assert_close(got, want, dtype, 1e-5)
+    for a, r in zip(_grads(got, k, g.to(dev)), _grads(want, p, g)):
+        _assert_close(a, r, dtype, 1e-4)
+    # the unfused warp
+    got_u = psv_warp(k[1], disps.to(dev))
+    want_u = shift_along_width(p[1], disps)
+    _assert_close(got_u, want_u, dtype, 1e-5)
+    (a,) = _grads(got_u, [k[1]], g[..., c:].to(dev))
+    (r,) = _grads(want_u, [p[1]], g[..., c:])
+    _assert_close(a, r, dtype, 1e-4)
+    width = 16 if c * k[0].element_size() % 16 == 0 else 8
+    assert set(_cuda.launch_widths) == {("psv_warp_fwd", width),
+                                        ("psv_warp_bwd", width)}
+    assert not _cuda.align_copies
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_psv_views_give_the_aligned_result_bit_for_bit(dev, dtype):
+    # fl, fr and the gradient as views 1 element off a 16-byte boundary
+    # take a narrower access, no copy; a non-contiguous gradient is copied
+    # once, counted; the results equal those of aligned inputs bit for bit
+    rng = np.random.RandomState(6)
+    dt = getattr(torch, dtype)
+    disps = _edge_disparities(1, 77).to(dev)
+    fl, fr = (torch.from_numpy(rng.randn(1, 3, 77, 32).astype(np.float32))
+              .to(dev, dt) for _ in range(2))
+    g = torch.from_numpy(rng.randn(1, 7, 3, 77, 64).astype(np.float32))
+    g = g.to(dev, dt)
+
+    def run(a, r, grad):
+        a, r = (t.detach().requires_grad_(True) for t in (a, r))
+        out = psv_from_disparities(a, r, disps)
+        return (out, *torch.autograd.grad(out, (a, r), grad))
+
+    _cuda.reset_launches()
+    want = run(fl, fr, g)
+    _cuda.reset_launches()
+    got = run(_offset_view(fl), _offset_view(fr), _offset_view(g))
+    assert all(w < 16 for _, w in _cuda.launch_widths)
+    assert not _cuda.align_copies
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    nc = torch.empty(1, 7, 3, 64, 77, dtype=dt, device=dev).transpose(-1, -2)
+    got = run(fl, fr, nc.copy_(g))
+    assert _cuda.align_copies == {"psv_warp": 1}
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("relu", [True, False])
