@@ -10,13 +10,15 @@ Phases (any failure ends the run with a non-zero exit):
      (one nvcc per source, all at once);
   2. hold each kernel against its plain PyTorch version on the card at the
      paper-scale (DSGNConfig.full()) shapes of the attack, in bf16 and
-     fp32, and time kernel, plain version and a library yardstick on two
+     fp32, and at the training step's shapes (DSGNConfig(), bf16), and
+     time kernel, plain version and a library yardstick on two
      clocks: `ms` is one call timed with CUDA events, host dispatch
      included, and `device_ms` the card's own time for the call (calls
      queued behind a sleep kernel, utils/cuda_timing.py); hold the bf16
      depth-tap conv (forward
      and dx) at the edges of its tiles and on misaligned views; time the
-     weight-gradient kernel alone (not on the attack path); hold K1 and K2
+     weight-gradient kernel alone (not on the attack path; phase 5 runs
+     it in training); hold K1 and K2
      (forward and backward PSV warp) at the edges of their design: other
      channel counts and access widths, ragged and long rows, per-image
      and out-of-range disparities, the unfused warp, misaligned views and
@@ -31,8 +33,18 @@ Phases (any failure ends the run with a non-zero exit):
      steady-state attack iteration and
      profile one. The kernels' per-iteration times weight phase 2's
      per-shape times by the launches the wrappers recorded in this run.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     The attack path must never launch the weight-gradient kernel;
+  5. train at DSGNConfig() in bf16: write seeded velodyne scans, make
+     depth ground truth with the make_depth_gt CLI, run the training CLI
+     for 2 epochs (a checkpoint each) and resume it for a third; check
+     finite losses, FrozenBatchNorm statistics bit for bit at their init
+     in every checkpoint, and that the step launched every kernel at the
+     shapes phase 2 timed, the weight gradient once per depth-tap
+     forward; run the attack CLI on the last checkpoint; time the
+     steady-state training step and profile one (`train_step`).
+The line before the last is the kernels' JSON record (the four kernels
+of the attack per attack iteration, the weight gradient per training
+step); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -66,6 +78,11 @@ SOURCES = {
         "eval_driving_safety_tpu_torch/csrc/depth_tap_conv.cu",
         "eval_driving_safety_tpu/ops/pallas_depthconv.py:78"),
     "depth_tap_conv_bwd": (
+        "eval_driving_safety_tpu_torch/csrc/depth_tap_conv.cu",
+        "eval_driving_safety_tpu/ops/pallas_depthconv.py:94"),
+    # the dW / d inv / d off half of the same TPU kernel, on the training
+    # path only
+    "depth_tap_conv_wgrad": (
         "eval_driving_safety_tpu_torch/csrc/depth_tap_conv.cu",
         "eval_driving_safety_tpu/ops/pallas_depthconv.py:94"),
 }
@@ -113,6 +130,13 @@ def timed(kernel, plain, library):
         t[pre + "ms"] = time_ms(fn)
         t[pre + "device_ms"] = device_ms(fn)
     return t
+
+
+def attack_launches_ok(launches):
+    """The attack path (input gradients only) launches every kernel but
+    the weight-gradient one, which it must never launch."""
+    return launches["depth_tap_conv_wgrad"] == 0 and all(
+        v > 0 for k, v in launches.items() if k != "depth_tap_conv_wgrad")
 
 
 def max_err(got, want):
@@ -273,13 +297,12 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
         yp_all = reference_depth_tap_conv(*pa, relu=False)
         kg = torch.autograd.grad(yk_all, ka, dy, retain_graph=True)
         pg = torch.autograd.grad(yp_all, pa, dm, retain_graph=True)
-        # K4's error covers dx, dW, d inv, d off (dx alone: e_dx); the
-        # weight-gradient kernel's covers dW, d inv, d off
-        e_b, e_w = e_dx, 0.0
+        # the dx kernel's error is e_dx; the weight-gradient kernel's
+        # covers dW, d inv, d off
+        e_w = 0.0
         for name, a, p_ in zip(("dx", "dW", "d inv", "d off"), kg, pg):
             rt = RTOL[dtype_name] if name == "dx" else RTOL_GRID[dtype_name]
             e = compare(f"depth_tap_conv_bwd {name} {tag}", a, p_, rt)
-            e_b = max(e_b, e)
             e_w = e_w if name == "dx" else max(e_w, e)
         # the weight-gradient kernel alone: x needs no gradient
         kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
@@ -320,7 +343,7 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
             bytes=(vol_in + vol_out) * isz + small, ops=conv_ops)
         # dx reads y and dy, writes dx
         per[("depth_tap_conv_bwd", shape, dtype_name)] = dict(
-            err=e_b, err_dx=e_dx, **t_b, full_backward_ms=ms_full,
+            err=e_dx, **t_b, full_backward_ms=ms_full,
             bytes=(2 * vol_out + vol_in) * isz + small, ops=conv_ops)
         # dW, d inv, d off read x, y and dy and write f32 sums; d inv
         # needs z, which is recomputed from x: two convs' operations
@@ -553,14 +576,26 @@ def per_iteration(per, counts, dtype_name):
         n = counts[(name, shape)]
         r = rec.setdefault(name, dict(err=0.0, bytes=0, ops=0,
                                       launches_per_iter=0))
-        for key in ("err", "err_dx"):
-            if key in v:
-                r[key] = max(r.get(key, 0.0), v[key])
+        r["err"] = max(r["err"], v["err"])
         for key in (*TIME_KEYS, "full_backward_ms", "bytes", "ops"):
             if key in v:
                 r[key] = r.get(key, 0) + n * v[key]
         r["launches_per_iter"] += n
     return rec
+
+
+def detail_rows(timed, counts):
+    """One row per timed (kernel, shape, dtype): errors, times, bound and
+    the launches per iteration or step at that shape."""
+    rows = []
+    for (k, s, dt), v in timed.items():
+        row = dict(kernel=k, shape=list(s), dtype=dt,
+                   launches_per_iter=counts.get((k, s), 0),
+                   bound_ms=bound(v, dt)[0])
+        row.update((m, v[m]) for m in ("err", *TIME_KEYS,
+                                       "full_backward_ms") if m in v)
+        rows.append(row)
+    return rows
 
 
 def bound(r, dtype_name):
@@ -617,8 +652,9 @@ def tiny_card_vs_cpu(dev):
     ge = max(max_err(glk, glc) / float(glc.abs().max()),
              max_err(grk, grc) / float(grc.abs().max()))
     check(ge <= 1e-3, f"tiny input gradient card vs cpu: rel err {ge:.3g}")
-    check(all(v > 0 for v in moved.values()),
-          f"tiny card run missed a kernel: {moved}")
+    check(attack_launches_ok(moved),
+          f"tiny card run: launches {moved}, expected every kernel of the "
+          "attack path and no weight gradient")
     log(json.dumps({"tiny_card_vs_cpu": {"loss_card": lk, "loss_cpu": lc,
                                          "grad_max_rel_err": ge,
                                          "launches": moved}}))
@@ -631,7 +667,14 @@ CALIB = ("P2: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 "
          "0.000000e+00 0.000000e+00 1.000000e+00 2.745884e-03\n"
          "P3: 7.215377e+02 0.000000e+00 6.095593e+02 -3.395242e+02 "
          "0.000000e+00 7.215377e+02 1.728540e+02 2.199936e+00 "
-         "0.000000e+00 0.000000e+00 1.000000e+00 2.729905e-03\n")
+         "0.000000e+00 0.000000e+00 1.000000e+00 2.729905e-03\n"
+         "R0_rect: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 "
+         "9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 "
+         "9.999631e-01\n"
+         "Tr_velo_to_cam: 7.533745e-03 -9.999714e-01 -6.166020e-04 "
+         "-4.069766e-03 1.480249e-02 7.280733e-04 -9.998902e-01 "
+         "-7.631618e-02 9.998621e-01 7.523790e-03 1.480755e-02 "
+         "-2.717806e-01\n")
 LABELS = ("Car 0.00 0 -1.58 587.0 173.0 614.0 200.0 1.65 1.67 3.64 "
           "-0.65 1.71 46.70 -1.59\n"
           "Car 0.00 0 1.85 280.0 185.0 420.0 240.0 1.50 1.60 3.90 "
@@ -664,8 +707,11 @@ def write_frames(root, ids):
             f.write(LABELS)
 
 
-def run_cli(args):
-    from eval_driving_safety_tpu_torch.cli.pgd_attack import main
+def run_cli(args, main=None):
+    """Run a CLI's `main` (default: the attack's) on `args`; returns its
+    wall time, the losses it printed and its output."""
+    if main is None:
+        from eval_driving_safety_tpu_torch.cli.pgd_attack import main
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -692,8 +738,9 @@ def the_slice(tmp, card, dev, scale="paper"):
     launches = dict(_cuda.launches)
     shapes = dict(_cuda.launch_shapes)
     widths = dict(_cuda.launch_widths)
-    check(all(v > 0 for v in launches.values()),
-          f"the paper-scale sweep missed a kernel: {launches}")
+    check(attack_launches_ok(launches),
+          f"the paper-scale sweep: launches {launches}, expected every "
+          "kernel of the attack path and no weight gradient")
     # K1 and K2 ran their 16-byte variant only
     check({k for k, _ in widths} == {"psv_warp_fwd", "psv_warp_bwd"}
           and {wd for _, wd in widths} == {16},
@@ -742,6 +789,29 @@ def the_slice(tmp, card, dev, scale="paper"):
     return launches, shapes, widths, n_pairs * iters
 
 
+def profile_kernels(fn):
+    """Profile one call of `fn`: (device kernel rows (us, name, count),
+    largest first; their total us; the port's kernels' us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device kernels only: operator rows, and user annotations on the
+    # device such as the optimizer's step range, would count their
+    # kernels again
+    rows = sorted(((getattr(ev, "self_device_time_total", 0), ev.key,
+                    ev.count) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and not ev.is_user_annotation), reverse=True)
+    total_us = sum(r[0] for r in rows)
+    port_us = sum(r[0] for r in rows
+                  if re.search(r"\b(psv|dtc)_\w+_kernel", r[1]))
+    return rows, total_us, port_us
+
+
 def steady_state(cfg, dev, card):
     """Steady-state attack iteration (loss + input gradient + update) of
     config `cfg` on one seeded frame pair, and a profile of one."""
@@ -782,19 +852,7 @@ def steady_state(cfg, dev, card):
     per_iter = (time.perf_counter() - t0) / n
     check(bool(torch.isfinite(res.losses).all()), "steady-state losses")
     peak = torch.cuda.max_memory_allocated()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        attack(1)
-        torch.cuda.synchronize()
-    # device kernels only (operator rows would count their kernels again)
-    rows = sorted(((getattr(ev, "self_device_time_total", 0), ev.key,
-                    ev.count) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    total_us = sum(r[0] for r in rows)
-    port_us = sum(r[0] for r in rows
-                  if re.search(r"\b(psv|dtc)_\w+_kernel", r[1]))
+    rows, total_us, port_us = profile_kernels(lambda: attack(1))
     log(json.dumps({"steady_state": {
         "depth_planes": cfg.num_depth_planes,
         "attack_iter_ms": per_iter * 1e3,
@@ -805,6 +863,190 @@ def steady_state(cfg, dev, card):
         "port_kernel_ms": port_us / 1e3,
         "top_kernels_ms": [[k[:70], c, us / 1e3] for us, k, c in rows[:16]],
         "card": card}}))
+
+
+# --------------------------------------------------------------- phase 5
+
+def write_velodyne(root, ids, n=120000):
+    """Seeded velodyne scans of a KITTI scan's size (x forward, y left, z
+    up, reflectance), beside the frames of `write_frames`."""
+    import numpy as np
+    os.makedirs(os.path.join(root, "velodyne"), exist_ok=True)
+    rng = np.random.RandomState(5)
+    for fid in ids:
+        pts = np.stack([rng.uniform(2.0, 80.0, n), rng.uniform(-30.0, 30.0, n),
+                        rng.uniform(-2.5, 2.0, n), rng.uniform(0.0, 1.0, n)],
+                       axis=1).astype(np.float32)
+        pts.tofile(os.path.join(root, "velodyne", fid + ".bin"))
+
+
+def train_losses(out):
+    return {int(e): float(v) for e, v in
+            re.findall(r"epoch (\d+): loss (\S+)", out)}
+
+
+def training(tmp, dev, timed_shapes):
+    """The training CLI at DSGNConfig() in bf16 on two seeded frames with
+    depth ground truth from make_depth_gt: 2 epochs with a checkpoint
+    each, a resumed third, then the attack CLI on the last checkpoint.
+    Returns the kernel launches of the first run and its launches per
+    step at each (kernel, shape)."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli import make_depth_gt
+    from eval_driving_safety_tpu_torch.cli.train_detector import \
+        main as train_main
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+    cfg = DSGNConfig()
+    ids = ["000001", "000002"]
+    data, depth = os.path.join(tmp, "kitti"), os.path.join(tmp, "depth")
+    ck = os.path.join(tmp, "ckpts")
+    write_frames(data, ids)
+    write_velodyne(data, ids)
+    make_depth_gt.main(["--data_path", data, "--out_dir", depth])
+    returns = [int((np.load(os.path.join(depth, f + ".npy")) > 0).sum())
+               for f in ids]
+    check(all(r > 1000 for r in returns), f"depth gt returns {returns}")
+    common = ["--data_path", data, "--detector", "dsgn", "--batch", "1",
+              "--warmup_steps", "2", "--ckpt_every", "1", "--ckpt_dir", ck,
+              "--depth_dir", depth, "--device", str(dev)]
+    _cuda.reset_launches()
+    t_train, _, out = run_cli(common + ["--epochs", "2"], train_main)
+    launches = dict(_cuda.launches)
+    shapes = dict(_cuda.launch_shapes)
+    steps = 2 * len(ids)
+    losses = train_losses(out)
+    check(sorted(losses) == [1, 2] and all(
+        math.isfinite(v) for v in losses.values()),
+        f"training losses {losses}")
+    _cuda.reset_launches()
+    t_resume, _, out = run_cli(common + ["--epochs", "1", "--resume"],
+                               train_main)
+    resumed = train_losses(out)
+    check(f"resumed from {os.path.join(ck, 'epoch2')} (epoch 2)" in out
+          and sorted(resumed) == [3] and math.isfinite(resumed[3]),
+          f"the resumed run: losses {resumed}")
+    check({k: 2 * v for k, v in _cuda.launches.items()} == launches,
+          f"resumed launches {dict(_cuda.launches)} per step != {launches}")
+
+    # FrozenBatchNorm statistics bit for bit at their init in every
+    # checkpoint; the weights moved
+    init = DSGN(cfg).init_weights(0).state_dict()
+    stats = [k for k in init if k.rsplit(".", 1)[-1] in ("mean", "var")]
+    cks = {e: restore_checkpoint(os.path.join(ck, f"epoch{e}"))
+           for e in (1, 2, 3)}
+    for e, c in cks.items():
+        check(c["epoch"] == e and c["opt_state"]["count"] == 2 * e,
+              f"epoch{e}: epoch {c['epoch']}, count "
+              f"{c['opt_state']['count']}")
+        moved = [k for k in stats if not torch.equal(c["params"][k], init[k])]
+        check(not moved, f"epoch{e}: frozen statistics moved: {moved[:4]}")
+    w = "StereoFeatureNet_0.ConvBnRelu_0.Conv_0.weight"
+    check(not torch.equal(cks[3]["params"][w], cks[1]["params"][w]),
+          "the weights did not move between epochs 1 and 3")
+
+    # the wrappers' record: every kernel at the shapes phase 5 timed, in
+    # bf16, the weight gradient once per forward launch at each shape
+    counts = {}
+    for (k, sh, dt), n in shapes.items():
+        check(dt == cfg.dtype and n % steps == 0,
+              f"training launched {k} {sh} {dt} {n} times in {steps} steps")
+        counts[(k, sh)] = n // steps
+    check(set(counts) == set(timed_shapes),
+          f"training launch shapes {sorted(counts)} != timed shapes "
+          f"{sorted(timed_shapes)}")
+    for sh in depthconv_shapes(cfg):
+        n = [counts.get((k, sh), 0) for k in ("depth_tap_conv_fwd",
+                                                "depth_tap_conv_bwd",
+                                                "depth_tap_conv_wgrad")]
+        check(n[0] > 0 and n.count(n[0]) == 3,
+              f"{sh}: fwd / dx / wgrad launches per step {n}")
+    check(launches["depth_tap_conv_wgrad"] == 8 * steps
+          and launches["psv_warp_fwd"] == launches["psv_warp_bwd"] == steps,
+          f"training launches {launches} in {steps} steps")
+
+    # the attack CLI on the trained checkpoint: no weight gradient
+    _cuda.reset_launches()
+    t_attack, attack_losses, out = run_cli([
+        "--data_path", data, "--detector", "dsgn", "--scale", "default",
+        "--iter", "2", "--batch", "1", "--device", str(dev),
+        "--ckpt", os.path.join(ck, "epoch3"),
+        "--out_prefix", os.path.join(tmp, "attack", "dsgn_pgd")])
+    check(f"loaded DSGN weights from {os.path.join(ck, 'epoch3')}" in out
+          and len(attack_losses) == len(ids) and all(
+              math.isfinite(v) for l in attack_losses for v in l)
+          and attack_launches_ok(dict(_cuda.launches)),
+          f"attack on the trained checkpoint: losses {attack_losses}, "
+          f"launches {dict(_cuda.launches)}")
+    log(json.dumps({"training": {
+        "config": "DSGNConfig()", "dtype": cfg.dtype, "frames": len(ids),
+        "depth_gt_returns": returns, "train_run_s": t_train,
+        "steps": steps, "losses": losses, "resume_run_s": t_resume,
+        "resumed_losses": resumed, "launches": launches,
+        "attack_on_checkpoint_s": t_attack,
+        "attack_on_checkpoint_losses": attack_losses}}))
+    return launches, counts
+
+
+def train_steady_state(cfg, dev, card):
+    """Steady-state training step (loss, every gradient, clip, AdamW) of
+    config `cfg` on one seeded frame pair, as the training CLI runs it,
+    and a profile of one."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli.train_detector import (
+        make_detector_optimizer, make_train_step, warmup_cosine_decay)
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    model = DSGN(cfg).init_weights(0).to(dev)
+    opt = make_detector_optimizer(model.named_parameters(),
+                                  warmup_cosine_decay(1e-3, 2, 1000))
+    step = make_train_step(model, opt, cfg, dev)
+    rng = np.random.RandomState(2)
+    t = lambda a: torch.as_tensor(a).to(dev)
+    hw = (cfg.input.height, cfg.input.width)
+    il = rng.randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    ir = np.roll(il, -20, axis=2)
+    depth = np.where(rng.rand(1, *hw) < 0.05,
+                     rng.uniform(2.0, 60.0, (1, *hw)), 0.0)
+    args = (t(il), t(ir), [t(np.full((1,), v, np.float32))
+                           for v in (721.5377, 0.54, 609.5593, 172.854)],
+            t(depth.astype(np.float32)),
+            t(np.array([[[-0.65, 1.71, 46.7, 1.65, 1.67, 3.64, -1.59, 1.0]]],
+                        np.float32)), t(np.array([1])))
+
+    def steps(n):
+        return [step(*args) for _ in range(n)]
+
+    steps(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    losses = steps(n)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    check(all(bool(torch.isfinite(l)) for l in losses), "training losses")
+    peak = torch.cuda.max_memory_allocated()
+    rows, total_us, port_us = profile_kernels(lambda: steps(1))
+    wgrad_us = sum(us for us, k, _ in rows if "dtc_wgrad_kernel" in k)
+    rec = {
+        "depth_planes": cfg.num_depth_planes,
+        "train_step_ms": per_step * 1e3, "train_steps_per_s": 1.0 / per_step,
+        "peak_device_mem_gib": peak / 2 ** 30,
+        "profiled_kernel_ms": total_us / 1e3,
+        "device_busy_share": (total_us / 1e3) / (per_step * 1e3),
+        "port_kernel_ms": port_us / 1e3,
+        "wgrad_kernel_ms": wgrad_us / 1e3,
+        "wgrad_share_of_kernel_time": wgrad_us / max(total_us, 1e-9),
+        "wgrad_share_of_step": (wgrad_us / 1e3) / (per_step * 1e3),
+        "top_kernels_ms": [[k[:70], c, us / 1e3] for us, k, c in rows[:16]],
+        "card": card}
+    log(json.dumps({"train_step": rec}))
+    return rec
 
 
 def main():
@@ -837,6 +1079,15 @@ def main():
         check_psv(full, dtype_name, dev, per)
         check_depthconv(full, dtype_name, dev, per, wgrad)
         torch.cuda.empty_cache()
+    # ... and at the training step's shapes (DSGNConfig(), bf16), before
+    # any CLI turns on deterministic mode, under which the library
+    # yardstick of K2 (grid_sample's backward) refuses to run
+    cfg_t = DSGNConfig()
+    timed_t, wgrad_t = {}, {}
+    check_psv(cfg_t, cfg_t.dtype, dev, timed_t)
+    check_depthconv(cfg_t, cfg_t.dtype, dev, timed_t, wgrad_t)
+    timed_t.update(wgrad_t)
+    torch.cuda.empty_cache()
     check_depthconv_edges(dev)
     check_psv_edges(dev)
 
@@ -860,19 +1111,12 @@ def main():
     check(all(n % n_iters == 0 for n in shapes.values()),
           f"slice launches {shapes} not a multiple of {n_iters} iterations")
     counts = {(k, s): n // n_iters for (k, s, _), n in shapes.items()}
-    # the weight gradient runs once per dx launch when weights need one
+    # were the weights to need a gradient, the weight-gradient kernel would
+    # run once per dx launch
     wcounts = {("depth_tap_conv_wgrad", s): n for (k, s), n in counts.items()
                if k == "depth_tap_conv_bwd"}
-    detail = []
-    for (k, s, dt), v in [*per.items(), *wgrad.items()]:
-        row = dict(kernel=k, shape=list(s), dtype=dt,
-                   launches_per_iter=counts.get((k, s), 0),
-                   bound_ms=bound(v, dt)[0])
-        row.update((m, v[m]) for m in ("err", "err_dx", *TIME_KEYS,
-                                       "full_backward_ms") if m in v)
-        detail.append(row)
-    log(json.dumps({"kernel_detail": detail}))
-    log(json.dumps({"kernel_wgrad_off_path": {
+    log(json.dumps({"kernel_detail": detail_rows({**per, **wgrad}, counts)}))
+    log(json.dumps({"kernel_wgrad_paper_shapes": {
         dt: dict(max_abs_err=r["err"], **{m: r[m] for m in TIME_KEYS},
                  bound_ms=bound(r, dt)[0], bound_by=bound(r, dt)[1],
                  launches_if_weights_had_grad=r["launches_per_iter"])
@@ -883,18 +1127,41 @@ def main():
                 bound_ms=bound(v, "float32")[0])
         for k, v in per_iteration(per, counts, "float32").items()}}))
 
-    # times, bytes and operations per attack iteration: each shape's
-    # time times its launches per iteration. `ms`, `plain_ms` and
-    # `library_ms` are CUDA-event call times, the `*device_ms` the card's
-    # own; compare a kernel with its yardsticks on one clock.
+    # 5. training at DSGNConfig() in bf16: the training CLI (checkpoints,
+    # resume, the attack on its checkpoint) at the shapes phase 2 timed,
+    # then steady state
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t_launches, t_counts = training(
+            tmp, dev, {(k, s) for k, s, _ in timed_t})
+    torch.cuda.empty_cache()
+    train_steady_state(cfg_t, dev, card)
+    log(json.dumps({"kernel_detail_train": detail_rows(timed_t, t_counts)}))
+    rec_t = per_iteration(timed_t, t_counts, cfg_t.dtype)
+    log(json.dumps({"kernels_train_step": {
+        k: dict(launches_per_step=r["launches_per_iter"],
+                max_abs_err=r["err"], **{m: r[m] for m in TIME_KEYS},
+                bound_ms=bound(r, cfg_t.dtype)[0],
+                bound_by=bound(r, cfg_t.dtype)[1])
+        for k, r in rec_t.items()}}))
+
+    # times, bytes and operations per attack iteration (the four kernels
+    # of the attack path) or per training step (the weight gradient, which
+    # only training launches): each shape's time times its launches per
+    # iteration or step. `launches` counts the sweep's launches, or the
+    # first training run's. `ms`, `plain_ms` and `library_ms` are
+    # CUDA-event call times, the `*device_ms` the card's own; compare a
+    # kernel with its yardsticks on one clock.
     rec = per_iteration(per, counts, full.dtype)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        r = rec[name]
-        b_ms, b_by = bound(r, full.dtype)
+        on_attack = name in rec
+        r = rec[name] if on_attack else rec_t[name]
+        dt = full.dtype if on_attack else cfg_t.dtype
+        b_ms, b_by = bound(r, dt)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if on_attack else t_launches)[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"],
@@ -903,14 +1170,14 @@ def main():
             "library_device_ms": r["library_device_ms"],
             "bound_share": b_ms / r["ms"],
             "device_bound_share": b_ms / r["device_ms"],
-            "launches_per_attack_iter": r["launches_per_iter"],
-            # K4: max_abs_err covers dx, dW, d inv, d off; dx alone here
-            **({"max_abs_err_dx": r["err_dx"]}
-               if name == "depth_tap_conv_bwd" else {}),
+            "per": "attack_iter" if on_attack else "train_step",
+            "launches_per_attack_iter": r["launches_per_iter"]
+            if on_attack else 0,
+            "launches_per_train_step": rec_t[name]["launches_per_iter"],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
-            "dtype": full.dtype})
+            "dtype": dt})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

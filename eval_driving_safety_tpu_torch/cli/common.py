@@ -85,27 +85,51 @@ def make_dsgn_cfg(args):
 
 
 def make_dsgn_model(args, cfg, device):
-    """The port's DSGN, frozen for the attack: weights from `--ckpt` (a
-    `torch.save`d state dict of this model, e.g. made by
-    utils.from_flax) or a fresh seeded init."""
+    """The port's DSGN, frozen for the attack: weights from `--ckpt`, or a
+    fresh seeded init. `--ckpt` is a `torch.save`d state dict of this
+    model (e.g. made by utils.from_flax) or an epoch directory of the
+    port's trainer (cli.train_detector), whose `params` it takes."""
     import torch
 
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.utils.checkpoint import (
+        is_checkpoint, restore_checkpoint)
     model = DSGN(cfg)
     if args.ckpt:
-        sd = None if os.path.isdir(args.ckpt) else torch.load(
-            args.ckpt, map_location="cpu", weights_only=True)
-        if not isinstance(sd, dict) or set(sd) != set(model.state_dict()):
+        if os.path.isdir(args.ckpt):
+            sd = restore_checkpoint(args.ckpt)["params"] \
+                if is_checkpoint(args.ckpt) else None
+        else:
+            sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        want = model.state_dict()
+        if not isinstance(sd, dict) or set(sd) != set(want) or any(
+                sd[k].shape != v.shape for k, v in want.items()):
             raise SystemExit(
-                f"{args.ckpt} is not a state dict of this package's DSGN at "
-                "this scale; the published DSGN checkpoint and orbax "
-                "checkpoints are not ported yet (ROADMAP items 8 and 13)")
+                f"{args.ckpt} is neither a state dict of this package's "
+                "DSGN at this scale nor a checkpoint of its trainer at this "
+                "scale; the published DSGN checkpoint (ROADMAP item 8) and "
+                "the JAX trainer's orbax checkpoints (item 13) are not read")
         model.load_state_dict(sd)
-        log(f"loaded DSGN state dict {args.ckpt}")
+        log(f"loaded DSGN weights from {args.ckpt}")
     else:
         model.init_weights(seed=0)
         log("WARNING: no --ckpt given; using randomly initialized weights")
     return model.to(device).requires_grad_(False).eval()
+
+
+def use_deterministic_kernels(device) -> None:
+    """Make runs repeat bit for bit on a CUDA device as far as library
+    kernels go (algorithms without a fixed summation order raise instead
+    of running), so an attack rerun, or a `--transfer full` run, writes
+    the same PNGs. The port's own dW kernel sums with f32 atomics, which
+    this setting does not reach. Leaves freshly allocated memory
+    unfilled: every output the port allocates is written in full."""
+    import torch
+    if device.type != "cuda":
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
 
 
 def log(msg: str):

@@ -24,7 +24,8 @@ import torch
 
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, add_io_args, add_scale_args, log,
-    make_dataset, make_dsgn_cfg, make_dsgn_model, make_writer)
+    make_dataset, make_dsgn_cfg, make_dsgn_model, make_writer,
+    use_deterministic_kernels)
 
 # queued replay jobs: each pins a packed trajectory and a host batch
 _MAX_PENDING_REPLAYS = 3
@@ -72,19 +73,6 @@ def _already_done(prefix: str, n_iters: int, frame_ids) -> bool:
     return all(os.path.exists(os.path.join(
         f"{prefix}_iters_{n_iters}", "image_2", fid + ".png"))
         for fid in frame_ids)
-
-
-def use_deterministic_kernels(device: torch.device) -> None:
-    """Make the attack repeat bit for bit on a CUDA device (library
-    algorithms without a fixed summation order raise instead of running),
-    so a rerun, or a `--transfer full` run, writes the same PNGs. Leaves
-    freshly allocated memory unfilled: every output the port allocates is
-    written in full."""
-    if device.type != "cuda":
-        return
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
 
 
 def run_dsgn(args):

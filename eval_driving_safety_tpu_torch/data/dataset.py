@@ -79,13 +79,16 @@ class KittiStereoDataset:
             else []
         return KittiSample(fid, im_l, im_r, calib, objects, im_l.shape[:2])
 
-    def batches(self, batch_size: int, prefetch: int = 2,
-                io_workers: int = 4, prepare=None):
+    def batches(self, batch_size: int, drop_remainder: bool = False,
+                prefetch: int = 2, io_workers: int = 4, prepare=None):
         """Yield `prepare(samples)` (or the sample lists) per batch, in
-        order. With prefetch > 0 that many batches are decoded and prepared
-        on a thread pool ahead of the consumer."""
+        order; with `drop_remainder` a last batch of fewer than
+        `batch_size` frames is left out. With prefetch > 0 that many
+        batches are decoded and prepared on a thread pool ahead of the
+        consumer."""
         n = len(self)
-        starts = range(0, n, batch_size)
+        stop = n - n % batch_size if drop_remainder else n
+        starts = range(0, stop, batch_size)
 
         def batch(s):
             samples = [self.get(i) for i in range(s, min(s + batch_size, n))]

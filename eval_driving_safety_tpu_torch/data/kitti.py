@@ -43,6 +43,13 @@ class Calibration:
     def baseline(self) -> float:
         return abs(float((self.P2[0, 3] - self.P3[0, 3]) / self.P2[0, 0]))
 
+    def project_rect_to_image(self, pts3d: np.ndarray) -> np.ndarray:
+        """(N, 3) rectified-camera points -> (N, 2) left-image pixels."""
+        hom = np.concatenate(
+            [pts3d, np.ones((pts3d.shape[0], 1), dtype=pts3d.dtype)], axis=1)
+        uvw = hom @ self.P2.T
+        return uvw[:, :2] / np.maximum(uvw[:, 2:3], 1e-9)
+
     @staticmethod
     def default(f_u: float = 721.5377, c_u: float = 609.5593,
                 c_v: float = 172.854, baseline: float = 0.54) -> "Calibration":

@@ -52,10 +52,13 @@ SIGNATURES = {
     },
 }
 
-# launch counts of the four kernels on the DSGN attack path, and the
-# launches of each (kernel, shape, dtype name)
+# launch counts of the kernels on the DSGN attack and training paths
+# (`depth_tap_conv_bwd` is the dx kernel, `depth_tap_conv_wgrad` the dW /
+# d inv / d off kernel, which only training launches), and the launches
+# of each (kernel, shape, dtype name)
 launches = {"psv_warp_fwd": 0, "psv_warp_bwd": 0,
-            "depth_tap_conv_fwd": 0, "depth_tap_conv_bwd": 0}
+            "depth_tap_conv_fwd": 0, "depth_tap_conv_bwd": 0,
+            "depth_tap_conv_wgrad": 0}
 launch_shapes: collections.Counter = collections.Counter()
 launch_widths: collections.Counter = collections.Counter()
 align_copies: collections.Counter = collections.Counter()

@@ -26,8 +26,9 @@ the model's inputs never need it).
 The backward always computes dx; dW and the coefficient gradients
 (one more kernel, f32 FMAs in both dtypes, reduced over the whole grid
 with f32 atomics) run only when autograd asks for them, which the
-attack never does. The dx and the dW kernel each count as one launch
-of `depth_tap_conv_bwd`.
+attack never does and training always does. The dx kernel counts as a
+launch of `depth_tap_conv_bwd`, the dW kernel as one of
+`depth_tap_conv_wgrad`.
 """
 from __future__ import annotations
 
@@ -60,7 +61,9 @@ def reference_depth_tap_conv(x5, w, inv, off, relu: bool = True):
                   (0, 0, 0, 0, 0, 0, 0, 1))
     out = z * inv.float() + off.float()
     if relu:
-        out = torch.clamp_min(out, 0.0)
+        # relu's gradient is 0 at 0, as the kernel's 1[y > 0] and JAX's
+        # relu; clamp_min's passes there
+        out = torch.relu(out)
     return out.to(x5.dtype)
 
 
@@ -111,7 +114,7 @@ class _DepthTapConv(torch.autograd.Function):
                          x4.data_ptr(), y.data_ptr(), dy.data_ptr(),
                          w.data_ptr(), inv.data_ptr(), dw32.data_ptr(),
                          dco.data_ptr(), b, d, n, c, f, int(ctx.relu))
-            _cuda.count_launch("depth_tap_conv_bwd", (b, d, n, c, f),
+            _cuda.count_launch("depth_tap_conv_wgrad", (b, d, n, c, f),
                                x4.dtype)
             dw = dw32.to(w.dtype)
             dinv, doff = dco[0].to(inv.dtype), dco[1].to(inv.dtype)

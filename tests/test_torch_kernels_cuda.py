@@ -196,9 +196,79 @@ def test_depth_tap_conv_kernels_match_plain(dev, d, hw, c, f, dtype, relu):
         before["depth_tap_conv_fwd"] + 1
     # the full backward launches two kernels: dx, then dW / d inv / d off
     assert _cuda.launches["depth_tap_conv_bwd"] == \
-        before["depth_tap_conv_bwd"] + 2
-    assert _cuda.launch_shapes[("depth_tap_conv_bwd", (2, d, n, c, f),
-                                dtype)] >= 2
+        before["depth_tap_conv_bwd"] + 1
+    assert _cuda.launches["depth_tap_conv_wgrad"] == \
+        before["depth_tap_conv_wgrad"] + 1
+    for kernel in ("depth_tap_conv_bwd", "depth_tap_conv_wgrad"):
+        assert _cuda.launch_shapes[(kernel, (2, d, n, c, f), dtype)] >= 1
+
+
+@pytest.mark.parametrize("needs", ["x", "weights", "all"])
+def test_depth_tap_backward_launches_what_autograd_asks_for(dev, needs):
+    # dx alone (the attack) launches no weight-gradient kernel; weights
+    # alone no dx kernel; both, one of each
+    rng = np.random.RandomState(8)
+    ts = [torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+          for a in (rng.randn(1, 5, 3, 7, 32), rng.randn(3, 32, 32) * 0.2,
+                    rng.randn(32) * 0.5 + 1.0, rng.randn(32) * 0.2)]
+    grad_of = {"x": ts[:1], "weights": ts[1:], "all": ts}[needs]
+    for t in grad_of:
+        t.requires_grad_(True)
+    y = depth_tap_conv(*ts)
+    _cuda.reset_launches()
+    torch.autograd.grad(y, grad_of, torch.ones_like(y))
+    assert _cuda.launches == {
+        "psv_warp_fwd": 0, "psv_warp_bwd": 0, "depth_tap_conv_fwd": 0,
+        "depth_tap_conv_bwd": int(needs != "weights"),
+        "depth_tap_conv_wgrad": int(needs != "x")}
+
+
+def test_tiny_training_step_matches_cpu(dev):
+    # the tiny DSGN in fp32 (TF32 off): every parameter's gradient on the
+    # card within 1e-3 x its largest magnitude of the CPU's (the same
+    # arithmetic summed in other orders through ~40 layers, dW over the
+    # grid with atomics); a Score3D bias, whose gradient is 0 up to
+    # rounding (the softmax over planes cancels it), against its weight's
+    import dataclasses
+
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
+        dsgn_total_loss
+    cfg = dataclasses.replace(DSGNConfig.tiny(), dtype="float32")
+    rng = np.random.RandomState(0)
+    il = rng.randn(1, 96, 320, 3).astype(np.float32)
+    ir = np.roll(il, -6, axis=2)
+    depth = np.where(rng.rand(1, 96, 320) < 0.5,
+                     rng.uniform(1.0, 70.0, (1, 96, 320)), 0.0)
+    boxes = np.zeros((1, 4, 8), np.float32)
+    boxes[0, 0] = [2.0, 1.6, 18.0, 1.5, 1.7, 4.0, 0.4, 1.0]
+    cpu = DSGN(cfg).init_weights(3)
+    card = DSGN(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+
+    def grads(model, device):
+        t = lambda a: torch.as_tensor(a).to(device)
+        calib = [t(np.full((1,), v, np.float32))
+                 for v in (180.0, 0.54, 160.0, 48.0)]
+        out = model(t(il), t(ir), *calib)
+        loss, _ = dsgn_total_loss(out, t(depth.astype(np.float32)),
+                                  t(boxes), t(np.array([1])), cfg)
+        loss.backward()
+        return {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+    _cuda.reset_launches()
+    gk = grads(card, dev)
+    assert _cuda.launches["depth_tap_conv_wgrad"] == 8
+    assert _cuda.launches["depth_tap_conv_bwd"] == 8
+    gc = grads(cpu, "cpu")
+    for name, want in gc.items():
+        ref = name.replace(".bias", ".weight") \
+            if name.startswith("depth_score") else name
+        scale = float(gc[ref].abs().max())
+        torch.testing.assert_close(gk[name], want, rtol=0, atol=1e-3 * scale,
+                                   msg=name)
 
 
 def _offset_view(t, requires_grad=False):

@@ -190,19 +190,32 @@ def test_wrappers_refuse_other_devices():
 
 def test_launch_record_counts_kernel_launches_only():
     """`count_launch` adds one per launch to the kernel's count and to its
-    (shape, dtype) entry; the plain versions that serve CPU tensors add
-    nothing."""
+    (shape, dtype) entry, the dx kernel and the weight-gradient kernel
+    each under its own name; the plain versions that serve CPU tensors
+    add nothing, backward with weight gradients included; a name outside
+    the record raises."""
     _cuda.reset_launches()
-    depth_tap_conv(torch.zeros(1, 2, 2, 2, 8), torch.zeros(3, 8, 8),
-                   torch.ones(8), torch.zeros(8))
+    assert set(_cuda.launches) == {
+        "psv_warp_fwd", "psv_warp_bwd", "depth_tap_conv_fwd",
+        "depth_tap_conv_bwd", "depth_tap_conv_wgrad"}
+    args = [t.requires_grad_(True) for t in (
+        torch.zeros(1, 2, 2, 2, 8), torch.zeros(3, 8, 8), torch.ones(8),
+        torch.zeros(8))]
+    depth_tap_conv(*args).sum().backward()
     psv_warp(torch.zeros(1, 2, 8, 4), torch.zeros(1, 3))
     assert sum(_cuda.launches.values()) == 0 and not _cuda.launch_shapes
     for _ in range(2):
         _cuda.count_launch("depth_tap_conv_bwd", (1, 2, 4, 8, 8),
                            torch.bfloat16)
+    _cuda.count_launch("depth_tap_conv_wgrad", (1, 2, 4, 8, 8),
+                       torch.bfloat16)
     assert _cuda.launches["depth_tap_conv_bwd"] == 2
+    assert _cuda.launches["depth_tap_conv_wgrad"] == 1
     assert _cuda.launch_shapes == {
-        ("depth_tap_conv_bwd", (1, 2, 4, 8, 8), "bfloat16"): 2}
+        ("depth_tap_conv_bwd", (1, 2, 4, 8, 8), "bfloat16"): 2,
+        ("depth_tap_conv_wgrad", (1, 2, 4, 8, 8), "bfloat16"): 1}
+    with pytest.raises(KeyError):
+        _cuda.count_launch("depth_tap_conv_dw", (1,), torch.bfloat16)
     _cuda.reset_launches()
     assert sum(_cuda.launches.values()) == 0 and not _cuda.launch_shapes
 
