@@ -67,6 +67,28 @@ def reference_depth_tap_conv(x5, w, inv, off, relu: bool = True):
     return out.to(x5.dtype)
 
 
+def reference_depth_tap_conv_wgrad(x4, y, dy, w, inv, relu: bool = True):
+    """Plain version of the weight gradient, computed as the bf16 kernels
+    compute it: x4 (B, D, N, C), y and dy (B, D, N, F) -> dW (3, C, F),
+    d inv (F,), d off (F,), all f32.
+
+    With dm = dy * 1[y > 0] (exact in the inputs' dtype) and A_d =
+    [x[d-1] | x[d] | x[d+1]] (zero outside [0, D)), one product
+    G = sum_{b,d} A_d^T dm[d] gives every output: dW_t = inv * G_t,
+    d inv = sum_{t,c} W_t * G_t (since sum dm z = sum dm sum_t x W_t) and
+    d off = sum dm. Nothing is divided by inv."""
+    xf = x4.float()
+    dm = (torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy).float()
+    g = torch.stack([
+        # tap t pairs plane d + t - 1 of x with plane d of dm
+        torch.einsum("bdnc,bdnf->cf", xf[:, :-1], dm[:, 1:]),
+        torch.einsum("bdnc,bdnf->cf", xf, dm),
+        torch.einsum("bdnc,bdnf->cf", xf[:, 1:], dm[:, :-1])])
+    dw = g * inv.float()
+    dinv = (w.float() * g).sum(dim=(0, 1))
+    return dw, dinv, dm.sum(dim=(0, 1, 2))
+
+
 class _DepthTapConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x4, w, inv, off, relu):
