@@ -259,7 +259,8 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
     import torch
     import torch.nn.functional as F
     from eval_driving_safety_tpu_torch.ops.depthconv import (
-        depth_tap_conv, reference_depth_tap_conv)
+        depth_tap_conv, reference_depth_tap_conv,
+        reference_depth_tap_conv_wgrad)
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(1)
     isz = torch.finfo(dt).bits // 8
@@ -304,11 +305,23 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
             rt = RTOL[dtype_name] if name == "dx" else RTOL_GRID[dtype_name]
             e = compare(f"depth_tap_conv_bwd {name} {tag}", a, p_, rt)
             e_w = e_w if name == "dx" else max(e_w, e)
-        # the weight-gradient kernel alone: x needs no gradient
+        # the weight-gradient kernel alone (x needs no gradient), also
+        # against its plain G-form version under the kernel's forward and,
+        # in bf16, bit for bit from one call to the next
         kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
         pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
         yk_w = depth_tap_conv(x, *kw)
         yp_w = reference_depth_tap_conv(x, *pw)
+        kgw = torch.autograd.grad(yk_w, kw, dy, retain_graph=True)
+        ref_w = reference_depth_tap_conv_wgrad(
+            x[:, :, :, 0], yk_w.detach()[:, :, :, 0], dy[:, :, :, 0], w, inv)
+        for name, a, r in zip(("dW", "d inv", "d off"), kgw, ref_w):
+            e_w = max(e_w, compare(f"depth_tap_conv_wgrad {name} vs G form "
+                                   f"{tag}", a, r, RTOL_GRID[dtype_name]))
+        if dtype_name == "bfloat16":
+            again = torch.autograd.grad(yk_w, kw, dy, retain_graph=True)
+            check(all(torch.equal(a, b) for a, b in zip(kgw, again)),
+                  f"depth_tap_conv_wgrad {tag}: two calls differ")
 
         # library yardsticks: the conv alone, as cuDNN computes it
         xc = x.permute(0, 4, 1, 2, 3)                   # (B, C, D, N, 1)
@@ -345,12 +358,13 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
         per[("depth_tap_conv_bwd", shape, dtype_name)] = dict(
             err=e_dx, **t_b, full_backward_ms=ms_full,
             bytes=(2 * vol_out + vol_in) * isz + small, ops=conv_ops)
-        # dW, d inv, d off read x, y and dy and write f32 sums; d inv
-        # needs z, which is recomputed from x: two convs' operations
+        # dW, d inv, d off read x, y and dy and write f32 sums; d inv is
+        # sum_k W G over the same sums G as dW, so the operations are one
+        # conv's
         wgrad[("depth_tap_conv_wgrad", shape, dtype_name)] = dict(
             err=e_w, **t_w,
             bytes=(2 * vol_out + vol_in) * isz + small + (3 * c + 2) * f * 4,
-            ops=2 * conv_ops)
+            ops=conv_ops)
         del yk, yp, yp_relu, yk_all, yp_all, yk_w, yp_w
 
 
@@ -397,6 +411,61 @@ def check_depthconv_edges(dev):
     log(json.dumps({"depthconv_bf16_edges": {
         "cases": len(cases) * 2, "max_err_over_max_ref": worst,
         "rtol": rtol, "misaligned_view_copies": copies}}))
+
+
+def check_depthconv_wgrad_edges(dev):
+    """The bf16 weight gradient (split-K GEMM + ordered reduction) at the
+    edges of its design, against its plain G-form version and the plain
+    VJP under the kernel's own forward, and bit for bit from one call to
+    the next: N ragged against the 64-pixel tile, D of 1, 2, 3, 13, B = 2,
+    C != F, widths of 8, ReLU on and off, and slices that start or end
+    inside a tile's run of planes (checked from the kernel's own
+    workspace size)."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops.depthconv import (
+        depth_tap_conv, reference_depth_tap_conv,
+        reference_depth_tap_conv_wgrad, wgrad_workspace_bytes)
+    dt, rtol = torch.bfloat16, RTOL_GRID["bfloat16"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = [(2, 1, 65, 8, 16), (2, 2, 35, 16, 8), (2, 3, 1000, 8, 16),
+             (2, 13, 130, 16, 8), (2, 13, 97, 64, 32), (2, 2, 2561, 32, 64),
+             (2, 3, 4097, 64, 8)]
+    worst, mid = 0.0, 0
+    for b, d, n, c, f in cases:
+        items = b * -(-n // 64) * d
+        slices = wgrad_workspace_bytes(b, d, n, c, f) // (4 * f * (3 * c + 1))
+        mid += any(s * items // slices % d for s in range(slices))
+        x = (torch.randn(b, d, n, 1, c, device=dev, generator=g) * 0.5).to(dt)
+        w = (torch.randn(3, c, f, device=dev, generator=g) / c ** 0.5).to(dt)
+        inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
+        off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
+        dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
+        for relu in (True, False):
+            tag = f"{(b, d, n, c, f)} relu={relu} bfloat16"
+            kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+            pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+            y = depth_tap_conv(x, *kw, relu)
+            kg = torch.autograd.grad(y, kw, dy, retain_graph=True)
+            again = torch.autograd.grad(y, kw, dy)
+            check(all(torch.equal(a, b_) for a, b_ in zip(kg, again)),
+                  f"depth_tap_conv_wgrad edge {tag}: two calls differ")
+            ref = reference_depth_tap_conv_wgrad(
+                x[:, :, :, 0], y.detach()[:, :, :, 0], dy[:, :, :, 0], w, inv,
+                relu)
+            dm = dy * (y.detach() > 0) if relu else dy
+            yl = reference_depth_tap_conv(x, *pw, relu=False)
+            vjp = torch.autograd.grad(yl, pw, dm)
+            for name, a, r, v in zip(("dW", "d inv", "d off"), kg, ref, vjp):
+                compare(f"depth_tap_conv_wgrad edge {name} {tag}", a, r, rtol)
+                compare(f"depth_tap_conv_wgrad edge {name} vjp {tag}", a, v,
+                        rtol)
+                worst = max(worst, max_err(a, r) / max(
+                    float(r.float().abs().max()), 1e-30))
+    check(mid >= 3, f"only {mid} wgrad edge cases split a tile's planes")
+    log(json.dumps({"depthconv_wgrad_bf16_edges": {
+        "cases": len(cases) * 2, "cases_with_slices_mid_tile": mid,
+        "max_err_over_max_ref": worst, "rtol": rtol,
+        "bit_for_bit_repeats": True}}))
 
 
 def edge_disparities(b, w, dev):
@@ -992,6 +1061,44 @@ def training(tmp, dev, timed_shapes):
     return launches, counts
 
 
+def train_grads_bit_for_bit(cfg, dev, batch):
+    """Every parameter gradient of two identical training steps (the
+    weights of `init_weights(0)`, one batch) compared by torch.equal, with
+    library kernels in deterministic mode as the training CLI sets it."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.common import \
+        use_deterministic_kernels
+    from eval_driving_safety_tpu_torch.data.dataset import u8_to_01
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
+        dsgn_total_loss
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    use_deterministic_kernels(dev)
+    mean = torch.tensor(cfg.input.mean, device=dev)
+    std = torch.tensor(cfg.input.std, device=dev)
+    il, ir, calib, depth, boxes, nb = batch
+
+    def grads():
+        model = DSGN(cfg).init_weights(0).to(dev)
+        out = model((u8_to_01(il) - mean) / std, (u8_to_01(ir) - mean) / std,
+                    *calib)
+        dsgn_total_loss(out, depth, boxes, nb, cfg)[0].backward()
+        return {k: p.grad for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    _cuda.reset_launches()
+    a = grads()
+    check(_cuda.launches["depth_tap_conv_wgrad"] == 8,
+          f"a training step launched the weight gradient "
+          f"{_cuda.launches['depth_tap_conv_wgrad']} times, not 8")
+    b = grads()
+    differ = sorted(k for k in a if not torch.equal(a[k], b.get(k)))
+    check(set(a) == set(b) and not differ,
+          f"two identical training steps: gradients differ in {differ[:6]}")
+    log(json.dumps({"train_grads_bit_for_bit": {
+        "parameters": len(a), "equal": True}}))
+
+
 def train_steady_state(cfg, dev, card):
     """Steady-state training step (loss, every gradient, clip, AdamW) of
     config `cfg` on one seeded frame pair, as the training CLI runs it,
@@ -1021,6 +1128,7 @@ def train_steady_state(cfg, dev, card):
     def steps(n):
         return [step(*args) for _ in range(n)]
 
+    train_grads_bit_for_bit(cfg, dev, args)
     steps(2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1032,7 +1140,8 @@ def train_steady_state(cfg, dev, card):
     check(all(bool(torch.isfinite(l)) for l in losses), "training losses")
     peak = torch.cuda.max_memory_allocated()
     rows, total_us, port_us = profile_kernels(lambda: steps(1))
-    wgrad_us = sum(us for us, k, _ in rows if "dtc_wgrad_kernel" in k)
+    # the bf16 split-K GEMM and its reduction (and fp32's kernel)
+    wgrad_us = sum(us for us, k, _ in rows if "dtc_wgrad_" in k)
     rec = {
         "depth_planes": cfg.num_depth_planes,
         "train_step_ms": per_step * 1e3, "train_steps_per_s": 1.0 / per_step,
@@ -1089,6 +1198,7 @@ def main():
     timed_t.update(wgrad_t)
     torch.cuda.empty_cache()
     check_depthconv_edges(dev)
+    check_depthconv_wgrad_edges(dev)
     check_psv_edges(dev)
 
     # 3. tiny model: card vs CPU

@@ -389,6 +389,254 @@ dtc_dx_mma_kernel(const __nv_bfloat16* __restrict__ y,
   tap_planes_mma<true, W>(dy, y, w, inv, nullptr, dx, D, N, F, C, relu, per);
 }
 
+// ------------------------------------------------ bf16 weight gradient
+
+// G = sum_{b,d} A_d^T dm[d] (3C + 1 rows, F columns) as one split-K GEMM:
+// rows (t, c) pair plane d + t - 1 of x with plane d of dm, and a last
+// row of ones sums dm (d off). K = B * D * N is cut into `slices`
+// contiguous runs of plane-tiles (b, 64-pixel tile, plane d), one block
+// each; a block walks the planes of one tile in order through a ring of
+// staged planes, then moves on to its next tile. Shared memory per class
+// W, in bf16 elements: x ring [kXRing][NB][W] (planes d - 1 .. d + 1 +
+// kWgLook, the one-plane halo included), dy ring [kMRing][NB][W], masked
+// in place into dm (planes d .. d + 1 + kWgLook), y ring [kYRing][NB][W]
+// (planes copied but not masked yet). One barrier per plane: the copy of
+// plane d + 1 + kWgLook is issued after it, when every warp has finished
+// plane d - 1.
+constexpr int kWgLook = 2;
+constexpr int kWgMaxSlices = 264;          // two blocks per SM of an H100
+constexpr int kWgReduceThreads = 256;      // > 3 * 64 + 1 outputs of one f
+
+template <int W>
+struct WgradTile {
+  static constexpr int kXRing = kWgLook + 3;
+  static constexpr int kMRing = kWgLook + 2;
+  static constexpr int kYRing = kWgLook + 1;
+  static constexpr int kSlot = kMmaNB * W;
+  static constexpr size_t kBytes =
+      sizeof(__nv_bfloat16) * (kXRing + kMRing + kYRing) * kSlot;
+  // output tiles: kMT 16-row tiles of (t, c) rows (kCT per tap) plus the
+  // ones tile, kNT 8-column tiles of f; each warp owns kMW x kNW of them
+  // and walks every pixel of every plane for them (no warp reduction)
+  static constexpr int kCT = W / 16;
+  static constexpr int kMT = 3 * kCT + 1;
+  static constexpr int kNT = W / 8;
+  static constexpr int kWarpsN = W == 16 ? 1 : kMmaWarps;
+  static constexpr int kMW = kMT / (kMmaWarps / kWarpsN);
+  static constexpr int kNW = kNT / kWarpsN;
+  static_assert(kMW * (kMmaWarps / kWarpsN) == kMT && kNW >= 1 && kNW <= 2,
+                "warp tiling");
+};
+
+// Slice s of the split-K GEMM, width class W: its (F, 3C + 1) f32 partial
+// of G goes to ws[s]. x (B, D, N, C); y, dy (B, D, N, F); C, F <= W.
+template <int W>
+__global__ void __launch_bounds__(kMmaThreads)
+dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ y,
+                     const __nv_bfloat16* __restrict__ dy,
+                     float* __restrict__ ws, int D, int N, int C, int F,
+                     int relu, int64_t items, int slices) {
+  using Tile = WgradTile<W>;
+  using bf16 = __nv_bfloat16;
+  constexpr int CHW = W / 8, NB = kMmaNB, kCT = Tile::kCT;
+  constexpr int kXRing = Tile::kXRing, kMRing = Tile::kMRing,
+                kYRing = Tile::kYRing;
+  extern __shared__ uint4 smem_mma[];
+  bf16* xring = reinterpret_cast<bf16*>(smem_mma);
+  bf16* mring = xring + kXRing * Tile::kSlot;
+  bf16* yring = mring + kMRing * Tile::kSlot;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3, mat = lane >> 3, rr = lane & 7;
+  const int wm = warp / Tile::kWarpsN, wn = warp % Tile::kWarpsN;
+  const int ch = C / 8, chf = F / 8;
+  const int tiles = (N + NB - 1) / NB;
+  const int64_t s = blockIdx.x;
+  const int64_t i0 = s * items / slices, i1 = (s + 1) * items / slices;
+
+  float acc[Tile::kMW][Tile::kNW][4];
+#pragma unroll
+  for (int mi = 0; mi < Tile::kMW; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Tile::kNW; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+
+  // the current run: planes [d0, d1) of tile n0 of image b
+  int64_t b = 0;
+  int n0 = 0, d0 = 0, d1 = 0;
+
+  // x plane p (zero outside [0, D)) and, for p in [d0, d1), dy and y
+  // plane p into their slots; zero past N and past C or F. A thread's
+  // chunk column j = tid % CHW is the same in every row it copies.
+  auto fetch = [&](int p) {
+    const int r = p - (d0 - 1);
+    bf16* xd = xring + (r % kXRing) * Tile::kSlot;
+    bf16* md = mring + (r % kMRing) * Tile::kSlot;
+    bf16* yd = yring + (r % kYRing) * Tile::kSlot;
+    const bool in_x = p >= 0 && p < D, in_m = p >= d0 && p < d1;
+#pragma unroll
+    for (int k = 0; k < NB * CHW / kMmaThreads; ++k) {
+      const int i = tid + k * kMmaThreads;
+      const int row = i / CHW, j = i % CHW, n = n0 + row;
+      const int sw = row * W + swz<CHW>(row, j) * 8;
+      const int64_t pix = (b * D + p) * N + n;
+      const bool okx = in_x && n < N && j < ch;
+      cp_async16(xd + sw, x + (okx ? pix * C + 8 * j : 0), okx ? 16 : 0);
+      if (in_m) {
+        const bool okm = n < N && j < chf;
+        const int64_t gm = okm ? pix * F + 8 * j : 0;
+        cp_async16(md + sw, dy + gm, okm ? 16 : 0);
+        if (relu) cp_async16(yd + sw, y + gm, okm ? 16 : 0);
+      }
+    }
+  };
+  // dm = dy * 1[y > 0] in place of dy, over the chunks this thread copied
+  // (exact in bf16: nothing is rounded)
+  auto mask = [&](int p) {
+    const int r = p - (d0 - 1);
+    bf16* md = mring + (r % kMRing) * Tile::kSlot;
+    const bf16* yd = yring + (r % kYRing) * Tile::kSlot;
+#pragma unroll
+    for (int k = 0; k < NB * CHW / kMmaThreads; ++k) {
+      const int i = tid + k * kMmaThreads;
+      const int row = i / CHW, j = i % CHW;
+      const int sw = row * W + swz<CHW>(row, j) * 8;
+      uint4 mv = *reinterpret_cast<const uint4*>(md + sw);
+      const uint4 yq = *reinterpret_cast<const uint4*>(yd + sw);
+      bf16* me = reinterpret_cast<bf16*>(&mv);
+      const bf16* ye = reinterpret_cast<const bf16*>(&yq);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (!(to_f(ye[e]) > 0.f)) me[e] = __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(md + sw) = mv;
+    }
+  };
+
+  for (int64_t i = i0; i < i1;) {
+    const int64_t bt = i / D;
+    b = bt / tiles;
+    n0 = (int)(bt % tiles) * NB;
+    d0 = (int)(i % D);
+    d1 = i1 - i < D - d0 ? d0 + (int)(i1 - i) : D;
+    // prologue: planes d0 - 1 .. d0 + kWgLook, one commit group each
+    for (int p = d0 - 1; p <= d0 + kWgLook; ++p) {
+      if (p <= d1) fetch(p);
+      cp_async_commit();
+    }
+    for (int d = d0; d < d1; ++d) {
+      cp_async_wait<kWgLook - 1>();      // planes up to d + 1 have landed
+      if (relu) mask(d);
+      __syncthreads();
+      if (d + 1 + kWgLook <= d1) fetch(d + 1 + kWgLook);  // slots of d - 2
+      cp_async_commit();
+
+      const bf16* ms = mring + ((d - d0 + 1) % kMRing) * Tile::kSlot;
+#pragma unroll
+      for (int ks = 0; ks < NB / 16; ++ks) {
+        // B = dm[d] (k = pixel, n = f), pixel-major: ldmatrix .trans
+        uint32_t bq[Tile::kNW][2];
+        {
+          const int pair = wn * Tile::kNW / 2;
+          const int krow = 16 * ks + 8 * (mat & 1) + rr;
+          uint32_t r4[4];
+          ldmatrix_x4<true>(r4, ms + krow * W +
+                                    swz<CHW>(krow, 2 * pair + (mat >> 1)) * 8);
+          if constexpr (Tile::kNW == 2) {
+            bq[0][0] = r4[0]; bq[0][1] = r4[1];
+            bq[1][0] = r4[2]; bq[1][1] = r4[3];
+          } else {                                 // the warp's half
+            const bool hi = wn & 1;
+            bq[0][0] = hi ? r4[2] : r4[0];
+            bq[0][1] = hi ? r4[3] : r4[1];
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < Tile::kMW; ++mi) {
+          const int mt = wm * Tile::kMW + mi;
+          uint32_t a[4];
+          if (mt == 3 * kCT) {
+            // the ones row (row 0 of the tile): its output is sum dm
+            const uint32_t one = g == 0 ? 0x3F803F80u : 0u;   // bf16 1, 1
+            a[0] = a[2] = one;
+            a[1] = a[3] = 0u;
+          } else {
+            // A = x[d - 1 + t]^T (m = c, k = pixel), pixel-major: .trans
+            const int t = mt / kCT, c0 = 16 * (mt % kCT);
+            if (c0 >= C) continue;                 // padding rows
+            const bf16* xs = xring + ((d - d0 + t) % kXRing) * Tile::kSlot;
+            const int krow = 16 * ks + 8 * (mat >> 1) + rr;
+            ldmatrix_x4<true>(a, xs + krow * W +
+                                     swz<CHW>(krow, c0 / 8 + (mat & 1)) * 8);
+          }
+#pragma unroll
+          for (int ni = 0; ni < Tile::kNW; ++ni)
+            mma_bf16(acc[mi][ni], a, bq[ni][0], bq[ni][1]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();          // the next run's prologue reuses every slot
+    i += d1 - d0;
+  }
+
+  // this slice's partial, ws[s] laid out (F, 3C + 1): row k = t C + c,
+  // and k = 3C for the ones row
+  const int K3 = 3 * C + 1;
+  float* out = ws + s * F * K3;
+#pragma unroll
+  for (int mi = 0; mi < Tile::kMW; ++mi) {
+    const int mt = wm * Tile::kMW + mi;
+#pragma unroll
+    for (int ni = 0; ni < Tile::kNW; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e >> 1);
+        const int f = (wn * Tile::kNW + ni) * 8 + 2 * q + (e & 1);
+        const int c = 16 * (mt % kCT) + row;
+        const int k = mt == 3 * kCT ? (row == 0 ? 3 * C : -1)
+                                    : (c < C ? (mt / kCT) * C + c : -1);
+        if (k >= 0 && f < F) out[f * K3 + k] = acc[mi][ni][e];
+      }
+  }
+}
+
+// One block per f: G[k][f] = the slices' partials summed in order s = 0,
+// 1, ..., then dW = inv G, d off = G[3C], d inv = sum_k W[k][f] G[k][f]
+// as a fixed tree. Every output is written once; the same inputs give
+// the same bits on every run.
+__global__ void __launch_bounds__(kWgReduceThreads)
+dtc_wgrad_reduce_kernel(const float* __restrict__ ws,
+                        const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ inv,
+                        float* __restrict__ dw, float* __restrict__ dco,
+                        int C, int F, int slices) {
+  __shared__ float red[kWgReduceThreads];
+  const int f = blockIdx.x, k = threadIdx.x, K3 = 3 * C + 1;
+  float gs = 0.f;
+  if (k < K3) {
+    const float* p = ws + (int64_t)f * K3 + k;
+    const int64_t stride = (int64_t)F * K3;
+#pragma unroll 8
+    for (int s = 0; s < slices; ++s) gs += p[s * stride];
+  }
+  float prod = 0.f;
+  if (k < 3 * C) {
+    dw[k * F + f] = gs * to_f(inv[f]);
+    prod = to_f(w[k * F + f]) * gs;
+  } else if (k == 3 * C) {
+    dco[F + f] = gs;
+  }
+  red[k] = prod;
+  __syncthreads();
+#pragma unroll
+  for (int h = kWgReduceThreads / 2; h > 0; h >>= 1) {
+    if (k < h) red[k] += red[k + h];
+    __syncthreads();
+  }
+  if (k == 0) dco[f] = red[0];
+}
+
 // ------------------------------------------------ fp32: CUDA cores
 
 constexpr int NB = 32;            // pixels per tile
@@ -550,14 +798,14 @@ dtc_dx_kernel(const float* __restrict__ y, const float* __restrict__ dy,
   }
 }
 
-// dW (3, C, F) and dco (2, F) = (d inv, d off), f32, added atomically.
+// fp32: dW (3, C, F) and dco (2, F) = (d inv, d off), added atomically.
 // One block per (pixel tile, batch) walks all planes in chunks of DC;
 // FT = F / 4 for the z recompute.
-template <typename T, int FT>
+template <int FT>
 __global__ void __launch_bounds__(kThreads)
-dtc_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                 const T* __restrict__ dy, const T* __restrict__ w,
-                 const T* __restrict__ inv, float* __restrict__ dw,
+dtc_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 const float* __restrict__ dy, const float* __restrict__ w,
+                 const float* __restrict__ inv, float* __restrict__ dw,
                  float* __restrict__ dco, int D, int N, int C, int relu) {
   constexpr int F = 4 * FT;
   extern __shared__ float4 smem4[];
@@ -579,8 +827,9 @@ dtc_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
   for (int d0 = 0; d0 < D; d0 += DC) {
     __syncthreads();                 // previous chunk's readers are done
-    stage_rows<T>(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2, n0);
-    stage_rows<T>(ms, y, dy, nullptr, relu, b, D, N, F, d0, DC, n0);
+    stage_rows<float>(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2,
+                      n0);
+    stage_rows<float>(ms, y, dy, nullptr, relu, b, D, N, F, d0, DC, n0);
     __syncthreads();
 
     // d inv / d off: z of this thread's tile, reduced into `red`
@@ -757,7 +1006,7 @@ int launch_dx(const void* y, const void* dy, const void* w, const void* inv,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int FT>
+template <int FT>
 int launch_wgrad(const void* x, const void* y, const void* dy, const void* w,
                  const void* inv, float* dw, float* dco, int B, int D, int N,
                  int C, int relu, cudaStream_t s) {
@@ -767,12 +1016,58 @@ int launch_wgrad(const void* x, const void* y, const void* dy, const void* w,
   if ((int64_t)B * N == 0) return 0;
   const size_t smem = sizeof(float) *
       (3 * C * F + (DC + 2) * C * NBP + DC * F * NBP + 2 * F);
-  auto kern = dtc_wgrad_kernel<T, FT>;
+  auto kern = dtc_wgrad_kernel<FT>;
   if (int e = set_smem(kern, smem)) return e;
   dim3 grid((N + NB - 1) / NB, 1, B);
-  kern<<<grid, kThreads, smem, s>>>((const T*)x, (const T*)y, (const T*)dy,
-                                    (const T*)w, (const T*)inv, dw, dco, D, N,
-                                    C, relu);
+  kern<<<grid, kThreads, smem, s>>>((const float*)x, (const float*)y,
+                                    (const float*)dy, (const float*)w,
+                                    (const float*)inv, dw, dco, D, N, C,
+                                    relu);
+  return (int)cudaGetLastError();
+}
+
+// the plane-tiles (b, 64-pixel tile, plane) of the bf16 weight gradient
+int64_t wgrad_items(int B, int D, int N) {
+  return (int64_t)B * ((N + kMmaNB - 1) / kMmaNB) * D;
+}
+
+// Slices of the bf16 weight gradient: one per k plane-tiles (k = 16 at
+// widths up to 32, 32 at 64, so that a slice's f32 partial is under 1/8
+// of the bytes it reads), at most kWgMaxSlices. A function of the launch
+// shape alone, never of the card: the sums are the same bits on any card.
+int wgrad_slices(int64_t items, int W) {
+  const int k = W == 64 ? 32 : 16;
+  const int64_t s = (items + k - 1) / k;
+  return (int)(s < kWgMaxSlices ? s : kWgMaxSlices);
+}
+
+int wgrad_class(int C, int F) {
+  const int wc = C > F ? C : F;
+  return wc <= 16 ? 16 : wc;
+}
+
+// bf16: the split-K GEMM into ws (none when there is nothing to sum),
+// then the ordered reduction, which writes every output
+template <int W>
+int launch_wgrad_mma(const void* x, const void* y, const void* dy,
+                     const void* w, const void* inv, float* dw, float* dco,
+                     float* ws, int B, int D, int N, int C, int F, int relu,
+                     cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const int64_t items = wgrad_items(B, D, N);
+  const int slices = wgrad_slices(items, W);
+  if (slices > 0) {
+    constexpr size_t smem = WgradTile<W>::kBytes;
+    auto kern = dtc_wgrad_mma_kernel<W>;
+    static const int e = set_smem(kern, smem);
+    if (e) return e;
+    kern<<<slices, kMmaThreads, smem, s>>>((const bf16*)x, (const bf16*)y,
+                                           (const bf16*)dy, ws, D, N, C, F,
+                                           relu, items, slices);
+    if (int e2 = (int)cudaGetLastError()) return e2;
+  }
+  dtc_wgrad_reduce_kernel<<<F, kWgReduceThreads, 0, s>>>(
+      ws, (const bf16*)w, (const bf16*)inv, dw, dco, C, F, slices);
   return (int)cudaGetLastError();
 }
 
@@ -834,22 +1129,44 @@ extern "C" int dtc_backward_dx(int dtype, const void* y, const void* dy,
   });
 }
 
-// dw (3, C, F) and dco (2, F) in f32, zeroed here and summed over the
-// whole (B, D, N) grid. F in {8, 16, 32, 64}, C <= 64.
+// Bytes of the f32 workspace that dtc_backward_w takes in bf16 (the
+// slices' partials of G); -1 for widths the kernels do not take.
+extern "C" int dtc_wgrad_workspace_bytes(int B, int D, int N, int C, int F) {
+  if (!width_ok(C) || !width_ok(F)) return -1;
+  const int64_t items = wgrad_items(B, D, N);
+  return (int)(sizeof(float) * wgrad_slices(items, wgrad_class(C, F)) * F *
+               (3 * C + 1));
+}
+
+// dw (3, C, F) and dco (2, F) = (d inv, d off) in f32, summed over the
+// whole (B, D, N) grid; every output is written. bf16: C, F in {8, 16,
+// 32, 64}, x, y, dy 16-byte aligned, ws of dtc_wgrad_workspace_bytes;
+// the sums are the same bits on every run. fp32 (ws unused): F in {8,
+// 16, 32, 64}, C <= 64, summed with atomics.
 extern "C" int dtc_backward_w(int dtype, const void* x, const void* y,
                               const void* dy, const void* w, const void* inv,
-                              float* dw, float* dco, int B, int D, int N,
-                              int C, int F, int relu, void* stream) {
-  if (!channels_ok(C)) return EDS_ERR_UNSUPPORTED;
+                              float* dw, float* dco, float* ws, int B, int D,
+                              int N, int C, int F, int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == EDS_DTYPE_BF16) {
+    if (!width_ok(C) || !width_ok(F)) return EDS_ERR_UNSUPPORTED;
+    if (!aligned16(x) || !aligned16(y) || !aligned16(dy))
+      return EDS_ERR_UNSUPPORTED;
+    switch (wgrad_class(C, F)) {
+      case 16:
+        return launch_wgrad_mma<16>(x, y, dy, w, inv, dw, dco, ws, B, D, N,
+                                    C, F, relu, s);
+      case 32:
+        return launch_wgrad_mma<32>(x, y, dy, w, inv, dw, dco, ws, B, D, N,
+                                    C, F, relu, s);
+      default:
+        return launch_wgrad_mma<64>(x, y, dy, w, inv, dw, dco, ws, B, D, N,
+                                    C, F, relu, s);
+    }
+  }
+  if (dtype != EDS_DTYPE_F32 || !channels_ok(C)) return EDS_ERR_UNSUPPORTED;
   return with_width(F, [&](auto f) {
-    constexpr int FT = decltype(f)::value / 4;
-    if (dtype == EDS_DTYPE_F32)
-      return launch_wgrad<float, FT>(x, y, dy, w, inv, dw, dco, B, D, N, C,
-                                     relu, s);
-    if (dtype == EDS_DTYPE_BF16)
-      return launch_wgrad<__nv_bfloat16, FT>(x, y, dy, w, inv, dw, dco, B, D,
-                                             N, C, relu, s);
-    return EDS_ERR_UNSUPPORTED;
+    return launch_wgrad<decltype(f)::value / 4>(x, y, dy, w, inv, dw, dco, B,
+                                                D, N, C, relu, s);
   });
 }

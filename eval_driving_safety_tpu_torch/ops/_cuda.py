@@ -8,6 +8,7 @@ is rebuilt at its next use. `build_all()` starts one nvcc per source at
 once; otherwise a library is built at the first launch that needs it.
 
 Each launcher returns a CUDA status; `launch` raises on anything but 0.
+`query` calls a launcher's size function (a workspace's bytes).
 `launches` counts the launches of each kernel, `launch_shapes` the
 launches of each (kernel, shape, dtype) and `launch_widths` those of each
 (kernel, access width in bytes) where a wrapper picks the width;
@@ -47,8 +48,14 @@ SIGNATURES = {
         "dtc_forward": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "dtc_backward_dx": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
-        "dtc_backward_w": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _P),
+        "dtc_backward_w": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _P),
+    },
+}
+# size queries (no stream; the result is the answer, not a status)
+QUERIES = {
+    "depth_tap_conv": {
+        "dtc_wgrad_workspace_bytes": (_I, _I, _I, _I, _I),
     },
 }
 
@@ -149,7 +156,8 @@ def _load(name: str) -> ctypes.CDLL:
         if job:
             _finish_build(job)
         lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, argtypes in {**SIGNATURES[name],
+                             **QUERIES.get(name, {})}.items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
@@ -169,6 +177,11 @@ def launch(name: str, fn: str, *args) -> None:
     if status != 0:
         msg = lib.eds_error_string(status).decode()
         raise RuntimeError(f"{name}.{fn} failed: status {status} ({msg})")
+
+
+def query(name: str, fn: str, *args) -> int:
+    """The int that query `fn` of library `name` returns for `args`."""
+    return getattr(_load(name), fn)(*args)
 
 
 def check_tensors(op: str, *tensors: torch.Tensor) -> None:

@@ -89,6 +89,17 @@ def reference_depth_tap_conv_wgrad(x4, y, dy, w, inv, relu: bool = True):
     return dw, dinv, dm.sum(dim=(0, 1, 2))
 
 
+def wgrad_workspace_bytes(b, d, n, c, f) -> int:
+    """Bytes of f32 workspace the bf16 weight gradient takes at (B, D, N,
+    C, F): one (F, 3C + 1) partial per slice of its split-K GEMM."""
+    nbytes = _cuda.query("depth_tap_conv", "dtc_wgrad_workspace_bytes",
+                         b, d, n, c, f)
+    if nbytes < 0:
+        raise ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels take "
+                         f"channel counts in {CHANNELS}")
+    return nbytes
+
+
 class _DepthTapConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x4, w, inv, off, relu):
@@ -132,10 +143,15 @@ class _DepthTapConv(torch.autograd.Function):
             dw32 = torch.empty((3, c, f), dtype=torch.float32,
                                device=x4.device)
             dco = torch.empty((2, f), dtype=torch.float32, device=x4.device)
+            ws = None
+            if x4.dtype == torch.bfloat16:
+                ws = torch.empty(wgrad_workspace_bytes(b, d, n, c, f) // 4,
+                                 dtype=torch.float32, device=x4.device)
             _cuda.launch("depth_tap_conv", "dtc_backward_w", code,
                          x4.data_ptr(), y.data_ptr(), dy.data_ptr(),
                          w.data_ptr(), inv.data_ptr(), dw32.data_ptr(),
-                         dco.data_ptr(), b, d, n, c, f, int(ctx.relu))
+                         dco.data_ptr(), None if ws is None else ws.data_ptr(),
+                         b, d, n, c, f, int(ctx.relu))
             _cuda.count_launch("depth_tap_conv_wgrad", (b, d, n, c, f),
                                x4.dtype)
             dw = dw32.to(w.dtype)

@@ -6,10 +6,11 @@ card. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports no JAX
 
 fp32 with TF32 off. Tolerances: forward atol 1e-5 (the same f32
 arithmetic, with FMA contraction), gradients atol 1e-4 (summed over the
-planes in another order, dW/d inv/d off over the whole grid with
+planes in another order, fp32 dW/d inv/d off over the whole grid with
 atomics). The depth-tap conv and the PSV warp are also held in bf16, at
 2^-7 x the largest reference magnitude (one bf16 rounding step of either
-side).
+side); the bf16 weight gradient also against its plain G-form version
+and bit for bit from call to call.
 """
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ import torch
 
 from eval_driving_safety_tpu_torch.ops import _cuda
 from eval_driving_safety_tpu_torch.ops.depthconv import (
-    depth_tap_conv, reference_depth_tap_conv)
+    depth_tap_conv, reference_depth_tap_conv, reference_depth_tap_conv_wgrad,
+    wgrad_workspace_bytes)
 from eval_driving_safety_tpu_torch.ops.cost_volume import shift_along_width
 from eval_driving_safety_tpu_torch.ops.psv_warp import (build_psv,
                                                         psv_from_disparities,
@@ -302,6 +304,99 @@ def test_depth_tap_conv_bf16_copies_misaligned_views(dev, relu):
     (dxm,) = torch.autograd.grad(ym, xm, dym)
     assert _cuda.align_copies["depth_tap_conv"] == before + 3
     assert torch.equal(ym, ya) and torch.equal(dxm, dxa)
+
+
+def _wgrad_case(dev, shape, seed, relu=True):
+    """bf16 inputs at (B, D, N, C, F); the weight gradient through the
+    wrapper (x needs no gradient) and its plain version under the
+    kernel's own forward."""
+    b, d, n, c, f = shape
+    rng = np.random.RandomState(seed)
+    bf = torch.bfloat16
+    mk = lambda *s_, sc=1.0, sh=0.0: torch.from_numpy(
+        (rng.randn(*s_) * sc + sh).astype(np.float32)).to(dev, bf)
+    x, dy = mk(b, d, n, 1, c, sc=0.5), mk(b, d, n, 1, f)
+    w, inv, off = mk(3, c, f, sc=c ** -0.5), mk(f, sc=0.2, sh=1.0), \
+        mk(f, sc=0.1)
+    ws = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+
+    def grads():
+        y = depth_tap_conv(x, *ws, relu=relu)
+        return y, torch.autograd.grad(y, ws, dy)
+
+    y, got = grads()
+    want = reference_depth_tap_conv_wgrad(
+        x[:, :, :, 0], y.detach()[:, :, :, 0], dy[:, :, :, 0], w, inv, relu)
+    return got, want, grads
+
+
+def _assert_wgrad_close(got, want):
+    for name, a, r in zip(("dW", "d inv", "d off"), got, want):
+        atol = 2.0 ** -7 * float(r.abs().max())
+        torch.testing.assert_close(a.float(), r, atol=atol, rtol=0,
+                                   msg=name)
+
+
+# the training shapes (DSGNConfig()) with N cut to B * D * N ~ 1e5
+@pytest.mark.parametrize("shape", [
+    (1, 64, 1563, 32, 32), (1, 32, 3125, 64, 64), (1, 16, 1872, 64, 64),
+    (1, 144, 695, 32, 32)])
+def test_wgrad_bf16_at_training_shapes(dev, shape):
+    got, want, _ = _wgrad_case(dev, shape, seed=shape[1])
+    _assert_wgrad_close(got, want)
+
+
+def _slice_bounds(shape):
+    """The plane-tile index where each slice of the weight gradient
+    starts, from the kernel's own workspace size."""
+    b, d, n, c, f = shape
+    items = b * -(-n // 64) * d
+    slices = wgrad_workspace_bytes(*shape) // (4 * f * (3 * c + 1))
+    return d, [s * items // slices for s in range(slices)]
+
+
+# N ragged against 64, D of 1, 2, 3, 13, C != F, widths of 8, and slices
+# that start or end inside a tile's run of planes
+WGRAD_EDGES = [(2, 1, 65, 8, 16), (2, 2, 35, 16, 8), (2, 3, 1000, 8, 16),
+               (2, 13, 130, 16, 8), (2, 13, 97, 64, 32),
+               (2, 2, 2561, 32, 64)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", WGRAD_EDGES)
+def test_wgrad_bf16_at_its_edges(dev, shape, relu):
+    got, want, _ = _wgrad_case(dev, shape, seed=shape[2], relu=relu)
+    _assert_wgrad_close(got, want)
+
+
+def test_wgrad_edges_include_slices_ending_mid_tile(dev):
+    mid = [s for s in WGRAD_EDGES
+           if any(i % _slice_bounds(s)[0] for i in _slice_bounds(s)[1])]
+    assert len(mid) >= 3, mid
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 1563, 32, 32),
+                                   (2, 13, 97, 64, 32)])
+def test_wgrad_bf16_is_bit_for_bit_from_call_to_call(dev, shape):
+    got, _, grads = _wgrad_case(dev, shape, seed=7)
+    for _ in range(3):
+        again = grads()[1]
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 29952, 32, 32),
+                                   (1, 16, 1872, 64, 64), (2, 13, 97, 8, 16),
+                                   (1, 1, 1, 64, 8), (1, 0, 5, 32, 32)])
+def test_wgrad_workspace_bytes(dev, shape):
+    # one (F, 3C + 1) f32 partial per slice; a slice per k plane-tiles (k
+    # = 16 at widths up to 32, 32 at 64), at most 264
+    b, d, n, c, f = shape
+    items = b * -(-n // 64) * d
+    k = 32 if max(c, f) == 64 else 16
+    slices = min(264, -(-items // k))
+    assert wgrad_workspace_bytes(*shape) == 4 * slices * f * (3 * c + 1)
+    with pytest.raises(ValueError):
+        wgrad_workspace_bytes(1, 2, 3, 12, 8)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
