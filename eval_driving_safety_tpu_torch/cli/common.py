@@ -121,8 +121,9 @@ def use_deterministic_kernels(device) -> None:
     """Make runs repeat bit for bit on a CUDA device as far as library
     kernels go (algorithms without a fixed summation order raise instead
     of running), so an attack rerun, or a `--transfer full` run, writes
-    the same PNGs. The port's own dW kernel sums with f32 atomics, which
-    this setting does not reach. Leaves freshly allocated memory
+    the same PNGs. The port's bf16 weight gradient sums in a fixed order;
+    its fp32 one sums with f32 atomics, which this setting does not
+    reach. Leaves freshly allocated memory
     unfilled: every output the port allocates is written in full."""
     import torch
     if device.type != "cuda":

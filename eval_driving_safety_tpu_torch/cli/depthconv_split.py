@@ -45,7 +45,7 @@ from eval_driving_safety_tpu_torch.ops.depthconv import (
 from eval_driving_safety_tpu_torch.utils.cuda_timing import device_ms
 
 PLANES = (3, 4, 6, 8, 11, 12, 16, 24, 32, 48, 96)
-SLICES = (16, 33, 66, 132, 264, 396, 528, 792, 1056)
+SLICES = (16, 33, 66, 132, 198, 264, 396, 528, 660, 792, 1056)
 PEAK_BYTES, PEAK_BF16_OPS = 3.35e12, 989e12       # H100 SXM
 _SPLIT = re.compile(r"const int per = planes_per_block\(([^;]*)\);")
 _SLICES = re.compile(r"const int slices = wgrad_slices\(([^;]*)\);")
@@ -152,6 +152,23 @@ def sweep_shape(lib, shape, dev):
     return rec
 
 
+def kernel_device_us(fn, reps=10):
+    """Device time of each of the weight gradient's kernels in one call
+    of `fn`, from the profiler (mean over `reps` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        m = re.search(r"dtc_wgrad_\w+(<\d+>)?", ev.key)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + \
+                getattr(ev, "self_device_time_total", 0.0) / reps
+    return out
+
+
 def sweep_wgrad_shape(lib, shape, dev):
     """The bf16 weight gradient at `shape` for the launcher's S and each S
     of SLICES up to the plane-tiles: device ms, errors against the plain
@@ -167,7 +184,7 @@ def sweep_wgrad_shape(lib, shape, dev):
     y = reference_depth_tap_conv(x[:, :, :, None], w, inv, off)[:, :, :, 0]
     items = b * -(-n // 64) * d
     slices = [s for s in SLICES if s <= items]
-    ws = torch.empty(max([*slices, 264]) * f * (3 * c + 1), device=dev)
+    ws = torch.empty(max(SLICES) * f * (3 * c + 1), device=dev)
     dw = torch.empty(3, c, f, device=dev)
     dco = torch.empty(2, f, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -214,7 +231,8 @@ def sweep_wgrad_shape(lib, shape, dev):
             raise SystemExit(f"{shape}: S={s or 'launcher'} off the plain "
                              f"version by {err} x its largest magnitude")
         rec["launcher" if s == 0 else f"slices_{s}"] = {
-            "ms": device_ms(run, 40), "err_dw_dinv_doff": err}
+            "ms": device_ms(run, 40), "err_dw_dinv_doff": err,
+            "kernels_us": kernel_device_us(run)}
     lib.set_split(0)
     return rec
 

@@ -9,6 +9,11 @@
 //   dx[d]  = dz[d+1] W0^T + dz[d] W1^T + dz[d-1] W2^T
 //   dW_t   = sum_{b,d,n} x[d+t-1]^T dz[d]
 //   d inv  = sum dm * z,   d off = sum dm
+// The bf16 weight gradient takes all three from one product: with A_d =
+// [x[d-1] | x[d] | x[d+1]], G = sum_{b,d} A_d^T dm[d] is (3C x F), and
+//   dW_t = inv * G_t,  d inv = sum_{t,c} W_t * G_t,  d off = sum dm
+// (sum dm z = sum dm sum_t x W_t), so z is not recomputed and nothing is
+// divided by inv.
 //
 // Which kernel replaces which TPU kernel of
 // eval_driving_safety_tpu/ops/pallas_depthconv.py, by dtype:
@@ -16,7 +21,9 @@
 //   bf16 dx        dtc_dx_mma_kernel   <- `_bwd_kernel`'s dx (`_pallas_bwd`)
 //   fp32 forward   dtc_fwd_kernel      <- `_fwd_kernel`
 //   fp32 dx        dtc_dx_kernel       <- `_bwd_kernel`'s dx
-//   dW, d inv, d off (both dtypes)  dtc_wgrad_kernel <- `_bwd_kernel`'s rest
+//   bf16 dW, d inv, d off  dtc_wgrad_mma_kernel + dtc_wgrad_reduce_kernel
+//                                      <- `_bwd_kernel`'s rest
+//   fp32 dW, d inv, d off  dtc_wgrad_kernel    <- `_bwd_kernel`'s rest
 // Every kernel takes C, F in {8, 16, 32, 64} and every depth D >= 1.
 //
 // What bounds them. The work is 2 * 3 * C * F operations per pixel and
@@ -58,15 +65,25 @@
 // dzp). That rounding of dz is the one extra rounding against the plain
 // version, which keeps dz in f32. The taps are the same weights read
 // transposed (ldmatrix without .trans) in reversed order.
+// The weight gradient (training only) is one split-K GEMM, M = 3C (+ a
+// ones row for d off), N = F, K = B D N: the same staged x planes with
+// their halo give A, dm formed in shared memory without inv (exact in
+// bf16) gives B, both read with ldmatrix .trans. Its bytes are the dx
+// kernel's (x, y, dy once) and its operations one conv's, so it is bytes
+// bound too. The K range is cut into slices by the launch shape alone;
+// each block writes its f32 partial of G to a workspace, and a second
+// kernel sums the partials in slice order and applies the epilogue, so
+// the sums are the same bits on every run and every card, without atomics.
 //
 // fp32 design (the tiny model's card-vs-CPU check; not on the attack
 // path, and TF32 would not hold its 1e-4 tolerance). A block owns NB = 32
 // pixels and DC = 8 planes, stages the DC + 2 input rows and the weights
 // as f32 in shared memory, and each of 256 threads computes a 4-pixel x
-// F/4-feature tile with f32 FMAs (`tap_tile`). The wgrad kernel (only
-// when the weights need a gradient) reuses that staging, recomputes z
-// from x as the TPU kernel does, and adds each block's sums to the
-// zeroed f32 outputs with atomics.
+// F/4-feature tile with f32 FMAs (`tap_tile`). The fp32 wgrad kernel
+// (only when the weights need a gradient) reuses that staging, recomputes
+// z from x as the TPU kernel does, and adds each block's sums to the
+// zeroed f32 outputs with atomics, so its sums vary in the last bits from
+// run to run.
 #include "common.cuh"
 
 #include <type_traits>
@@ -138,18 +155,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   if constexpr (TRANS) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
+        : "r"(addr));
   } else {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
+        : "r"(addr));
   }
+}
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4<TRANS>(r, smem_u32(p));
 }
 // acc (16 x 8, f32) += a (16 x 16, row) * b (16 x 8, col), bf16 inputs
 __device__ __forceinline__ void mma_bf16(float (&acc)[4],
@@ -404,8 +425,8 @@ dtc_dx_mma_kernel(const __nv_bfloat16* __restrict__ y,
 // plane d + 1 + kWgLook is issued after it, when every warp has finished
 // plane d - 1.
 constexpr int kWgLook = 2;
-constexpr int kWgMaxSlices = 264;          // two blocks per SM of an H100
-constexpr int kWgReduceThreads = 256;      // > 3 * 64 + 1 outputs of one f
+constexpr int kWgParts = 4;                // runs of slices the reduction sums
+constexpr int kWgReduceThreads = 1024;     // kWgParts x 256 >= 3 * 64 + 1
 
 template <int W>
 struct WgradTile {
@@ -449,7 +470,10 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3, mat = lane >> 3, rr = lane & 7;
-  const int wm = warp / Tile::kWarpsN, wn = warp % Tile::kWarpsN;
+  // the warp's tiles: m-tiles wm kMW.., n-tiles wn kNW.. (wm is 0 at W >=
+  // 32, known here, so that each m-tile's tap and columns are constants)
+  const int wm = Tile::kWarpsN == kMmaWarps ? 0 : warp;
+  const int wn = Tile::kWarpsN == kMmaWarps ? warp : 0;
   const int ch = C / 8, chf = F / 8;
   const int tiles = (N + NB - 1) / NB;
   const int64_t s = blockIdx.x;
@@ -513,6 +537,18 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
+  // lane parts of the fragment addresses within a slot, the same for
+  // every plane and k-step (16-row steps leave a row's swizzle unchanged):
+  // A's 8 x 8 matrices are (pixel rows 0-7 | 8-15) x (columns c0 | c0 +
+  // 8), B's (rows 0-7 | 8-15) x (n-tile 2 pair | 2 pair + 1)
+  const int arow = 8 * (mat >> 1) + rr, brow = 8 * (mat & 1) + rr;
+  int a_off[kCT];
+#pragma unroll
+  for (int ct = 0; ct < kCT; ++ct)
+    a_off[ct] = arow * W + swz<CHW>(arow, 2 * ct + (mat & 1)) * 8;
+  const int b_off =
+      brow * W + swz<CHW>(brow, 2 * (wn * Tile::kNW / 2) + (mat >> 1)) * 8;
+
   for (int64_t i = i0; i < i1;) {
     const int64_t bt = i / D;
     b = bt / tiles;
@@ -531,17 +567,36 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
       if (d + 1 + kWgLook <= d1) fetch(d + 1 + kWgLook);  // slots of d - 2
       cp_async_commit();
 
-      const bf16* ms = mring + ((d - d0 + 1) % kMRing) * Tile::kSlot;
+      const uint32_t ms =
+          smem_u32(mring + ((d - d0 + 1) % kMRing) * Tile::kSlot + b_off);
+      uint32_t xs[3];                     // slots of planes d - 1, d, d + 1
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        xs[t] = smem_u32(xring + ((d - d0 + t) % kXRing) * Tile::kSlot);
+      // A of m-tile mi at k-step ks: x[d - 1 + t]^T (m = c, k = pixel),
+      // pixel-major, so ldmatrix .trans; the ones tile's row 0 is 1 (its
+      // output is sum dm). False for padding rows past C (no products).
+      auto load_a = [&](uint32_t (&a)[4], int mi, int ks) {
+        const int mt = wm * Tile::kMW + mi;
+        if (mt == 3 * kCT) {
+          const uint32_t one = g == 0 ? 0x3F803F80u : 0u;   // bf16 1, 1
+          a[0] = a[2] = one;
+          a[1] = a[3] = 0u;
+          return true;
+        }
+        const int t = mt / kCT, ct = mt % kCT;
+        if (16 * ct >= C) return false;
+        const uint32_t base = t == 0 ? xs[0] : t == 1 ? xs[1] : xs[2];
+        ldmatrix_x4<true>(a, base + 2 * (16 * ks * W + a_off[ct]));
+        return true;
+      };
 #pragma unroll
       for (int ks = 0; ks < NB / 16; ++ks) {
         // B = dm[d] (k = pixel, n = f), pixel-major: ldmatrix .trans
         uint32_t bq[Tile::kNW][2];
         {
-          const int pair = wn * Tile::kNW / 2;
-          const int krow = 16 * ks + 8 * (mat & 1) + rr;
           uint32_t r4[4];
-          ldmatrix_x4<true>(r4, ms + krow * W +
-                                    swz<CHW>(krow, 2 * pair + (mat >> 1)) * 8);
+          ldmatrix_x4<true>(r4, ms + 2 * 16 * ks * W);
           if constexpr (Tile::kNW == 2) {
             bq[0][0] = r4[0]; bq[0][1] = r4[1];
             bq[1][0] = r4[2]; bq[1][1] = r4[3];
@@ -551,27 +606,18 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
             bq[0][1] = hi ? r4[3] : r4[1];
           }
         }
+        // each m-tile's A is loaded one m-tile ahead of its products
+        uint32_t a[2][4];
+        bool live[2];
+        live[0] = load_a(a[0], 0, ks);
 #pragma unroll
         for (int mi = 0; mi < Tile::kMW; ++mi) {
-          const int mt = wm * Tile::kMW + mi;
-          uint32_t a[4];
-          if (mt == 3 * kCT) {
-            // the ones row (row 0 of the tile): its output is sum dm
-            const uint32_t one = g == 0 ? 0x3F803F80u : 0u;   // bf16 1, 1
-            a[0] = a[2] = one;
-            a[1] = a[3] = 0u;
-          } else {
-            // A = x[d - 1 + t]^T (m = c, k = pixel), pixel-major: .trans
-            const int t = mt / kCT, c0 = 16 * (mt % kCT);
-            if (c0 >= C) continue;                 // padding rows
-            const bf16* xs = xring + ((d - d0 + t) % kXRing) * Tile::kSlot;
-            const int krow = 16 * ks + 8 * (mat >> 1) + rr;
-            ldmatrix_x4<true>(a, xs + krow * W +
-                                     swz<CHW>(krow, c0 / 8 + (mat & 1)) * 8);
-          }
+          if (mi + 1 < Tile::kMW)
+            live[(mi + 1) & 1] = load_a(a[(mi + 1) & 1], mi + 1, ks);
+          if (!live[mi & 1]) continue;
 #pragma unroll
           for (int ni = 0; ni < Tile::kNW; ++ni)
-            mma_bf16(acc[mi][ni], a, bq[ni][0], bq[ni][1]);
+            mma_bf16(acc[mi][ni], a[mi & 1], bq[ni][0], bq[ni][1]);
         }
       }
     }
@@ -601,40 +647,52 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// One block per f: G[k][f] = the slices' partials summed in order s = 0,
-// 1, ..., then dW = inv G, d off = G[3C], d inv = sum_k W[k][f] G[k][f]
-// as a fixed tree. Every output is written once; the same inputs give
-// the same bits on every run.
+// One block per f: G[k][f] = the slices' partials summed in a fixed order
+// (kWgParts contiguous runs of slices, each summed in slice order by its
+// own threads, then the runs in order), then dW = inv G, d off = G[3C],
+// d inv = sum_k W[k][f] G[k][f] as a fixed tree. Every output is written
+// once; the same inputs give the same bits on every run.
 __global__ void __launch_bounds__(kWgReduceThreads)
 dtc_wgrad_reduce_kernel(const float* __restrict__ ws,
                         const __nv_bfloat16* __restrict__ w,
                         const __nv_bfloat16* __restrict__ inv,
                         float* __restrict__ dw, float* __restrict__ dco,
                         int C, int F, int slices) {
-  __shared__ float red[kWgReduceThreads];
-  const int f = blockIdx.x, k = threadIdx.x, K3 = 3 * C + 1;
+  constexpr int kOut = kWgReduceThreads / kWgParts;
+  __shared__ float part[kWgParts][kOut];
+  const int f = blockIdx.x, k = threadIdx.x % kOut, p = threadIdx.x / kOut;
+  const int K3 = 3 * C + 1;
   float gs = 0.f;
   if (k < K3) {
-    const float* p = ws + (int64_t)f * K3 + k;
+    const float* src = ws + (int64_t)f * K3 + k;
     const int64_t stride = (int64_t)F * K3;
-#pragma unroll 8
-    for (int s = 0; s < slices; ++s) gs += p[s * stride];
+    const int s1 = (p + 1) * slices / kWgParts;
+#pragma unroll 4
+    for (int s = p * slices / kWgParts; s < s1; ++s) gs += src[s * stride];
   }
+  part[p][k] = gs;
+  __syncthreads();
   float prod = 0.f;
-  if (k < 3 * C) {
-    dw[k * F + f] = gs * to_f(inv[f]);
-    prod = to_f(w[k * F + f]) * gs;
-  } else if (k == 3 * C) {
-    dco[F + f] = gs;
+  if (p == 0) {
+    float g = part[0][k];
+#pragma unroll
+    for (int j = 1; j < kWgParts; ++j) g += part[j][k];
+    if (k < 3 * C) {
+      dw[k * F + f] = g * to_f(inv[f]);
+      prod = to_f(w[k * F + f]) * g;
+    } else if (k == 3 * C) {
+      dco[F + f] = g;
+    }
   }
-  red[k] = prod;
+  __syncthreads();                    // every run's sum has been read
+  if (p == 0) part[0][k] = prod;
   __syncthreads();
 #pragma unroll
-  for (int h = kWgReduceThreads / 2; h > 0; h >>= 1) {
-    if (k < h) red[k] += red[k + h];
+  for (int h = kOut / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) part[0][threadIdx.x] += part[0][threadIdx.x + h];
     __syncthreads();
   }
-  if (k == 0) dco[f] = red[0];
+  if (threadIdx.x == 0) dco[f] = part[0][0];
 }
 
 // ------------------------------------------------ fp32: CUDA cores
@@ -1031,14 +1089,16 @@ int64_t wgrad_items(int B, int D, int N) {
   return (int64_t)B * ((N + kMmaNB - 1) / kMmaNB) * D;
 }
 
-// Slices of the bf16 weight gradient: one per k plane-tiles (k = 16 at
-// widths up to 32, 32 at 64, so that a slice's f32 partial is under 1/8
-// of the bytes it reads), at most kWgMaxSlices. A function of the launch
-// shape alone, never of the card: the sums are the same bits on any card.
+// Slices of the bf16 weight gradient: one per k plane-tiles, at most
+// `most` (k = 8 and most = 396, three blocks per SM of an H100, at widths
+// up to 32; k = 4 and most = 264, two per SM, at 64: the best of the S
+// that cli/depthconv_split.py --wgrad timed at the training and paper
+// shapes, within 4%). A function of the launch shape alone, never of the
+// card: the sums are the same bits on any card.
 int wgrad_slices(int64_t items, int W) {
-  const int k = W == 64 ? 32 : 16;
+  const int k = W == 64 ? 4 : 8, most = W == 64 ? 264 : 396;
   const int64_t s = (items + k - 1) / k;
-  return (int)(s < kWgMaxSlices ? s : kWgMaxSlices);
+  return (int)(s < most ? s : most);
 }
 
 int wgrad_class(int C, int F) {

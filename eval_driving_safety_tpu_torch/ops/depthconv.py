@@ -23,12 +23,17 @@ The bf16 kernels copy 16-byte chunks, so a bf16 input whose view starts
 off a 16-byte boundary is first copied (counted in `_cuda.align_copies`;
 the model's inputs never need it).
 
-The backward always computes dx; dW and the coefficient gradients
-(one more kernel, f32 FMAs in both dtypes, reduced over the whole grid
-with f32 atomics) run only when autograd asks for them, which the
-attack never does and training always does. The dx kernel counts as a
-launch of `depth_tap_conv_bwd`, the dW kernel as one of
-`depth_tap_conv_wgrad`.
+The backward always computes dx; dW and the coefficient gradients run
+only when autograd asks for them, which the attack never does and
+training always does. In bf16 they come from one split-K tensor-core
+GEMM, G = sum A_d^T dm[d] with A_d = [x[d-1] | x[d] | x[d+1]], whose
+slices' f32 partials (a workspace the wrapper allocates,
+`wgrad_workspace_bytes`) a second kernel sums in a fixed order: dW =
+inv G, d inv = sum W G, d off = sum dm, the same bits on every run
+(`reference_depth_tap_conv_wgrad` is its plain version, for the tests).
+In fp32 one CUDA-core kernel recomputes z and sums with f32 atomics. The
+dx kernel counts as a launch of `depth_tap_conv_bwd`, the weight
+gradient as one of `depth_tap_conv_wgrad`.
 """
 from __future__ import annotations
 

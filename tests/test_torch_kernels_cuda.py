@@ -389,11 +389,11 @@ def test_wgrad_bf16_is_bit_for_bit_from_call_to_call(dev, shape):
                                    (1, 1, 1, 64, 8), (1, 0, 5, 32, 32)])
 def test_wgrad_workspace_bytes(dev, shape):
     # one (F, 3C + 1) f32 partial per slice; a slice per k plane-tiles (k
-    # = 16 at widths up to 32, 32 at 64), at most 264
+    # = 8 at widths up to 32, 4 at 64), at most 396 and 264
     b, d, n, c, f = shape
     items = b * -(-n // 64) * d
-    k = 32 if max(c, f) == 64 else 16
-    slices = min(264, -(-items // k))
+    k, most = (4, 264) if max(c, f) == 64 else (8, 396)
+    slices = min(most, -(-items // k))
     assert wgrad_workspace_bytes(*shape) == 4 * slices * f * (3 * c + 1)
     with pytest.raises(ValueError):
         wgrad_workspace_bytes(1, 2, 3, 12, 8)
