@@ -64,22 +64,20 @@ def paper_shapes(c):
 
 
 def build_sweep_lib(source, wgrad=False):
-    """`source` (a depth_tap_conv.cu) with `set_planes(p)` forcing p
-    planes per block, or with `wgrad`, `set_slices(s)` forcing s slices of
-    the weight gradient (0: the launcher's choice)."""
+    """`source` (a depth_tap_conv.cu) with `set_split(n)` forcing n planes
+    per block or, with `wgrad`, n slices of the weight gradient (0: the
+    launcher's choice)."""
     src = pathlib.Path(source).read_text()
-    pattern, var, fn = (_SLICES, "forced", "set_slices") if wgrad else \
-        (_SPLIT, "forced", "set_planes")
+    pattern, forced = (
+        (_SLICES, r"const int slices = forced > 0 ? (int)(forced < items ? "
+                  r"forced : items) : wgrad_slices(\1);") if wgrad else
+        (_SPLIT, r"const int per = forced > 0 ? (forced < D ? forced : D) "
+                 r": planes_per_block(\1);"))
     if not pattern.search(src):
         raise RuntimeError(f"depth_tap_conv.cu: no {pattern.pattern}")
-    if wgrad:
-        src = pattern.sub(r"const int slices = forced > 0 ? (int)(forced < "
-                          r"items ? forced : items) : wgrad_slices(\1);", src)
-    else:
-        src = pattern.sub(r"const int per = forced > 0 ? (forced < D ? "
-                          r"forced : D) : planes_per_block(\1);", src)
-    src = src.replace("namespace {", f"namespace {{\nint {var} = 0;", 1)
-    src += f'\nextern "C" void {fn}(int p) {{ {var} = p; }}\n'
+    src = pattern.sub(forced, src)
+    src = src.replace("namespace {", "namespace {\nint forced = 0;", 1)
+    src += '\nextern "C" void set_split(int n) { forced = n; }\n'
     out = _cuda.BUILD_DIR / "split_sweep" / hashlib.sha256(
         src.encode()).hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
@@ -88,11 +86,10 @@ def build_sweep_lib(source, wgrad=False):
     subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I",
                     str(_cuda.CSRC), "-o", str(so), str(cu)], check=True)
     lib = ctypes.CDLL(str(so))
-    for fn_ in ("dtc_forward", "dtc_backward_dx"):
-        getattr(lib, fn_).argtypes = [_I, *[_P] * 5, *[_I] * 6, _P]
+    for fn in ("dtc_forward", "dtc_backward_dx"):
+        getattr(lib, fn).argtypes = [_I, *[_P] * 5, *[_I] * 6, _P]
     lib.dtc_backward_w.argtypes = [_I, *[_P] * 8, *[_I] * 6, _P]
-    getattr(lib, fn).argtypes = [_I]
-    lib.set_split = getattr(lib, fn)
+    lib.set_split.argtypes = [_I]
     return lib
 
 

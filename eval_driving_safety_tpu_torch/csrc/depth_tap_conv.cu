@@ -748,9 +748,8 @@ __device__ __forceinline__ void tap_tile(const float* src, const float* w,
 // ch divides kThreads, so each thread keeps one channel k and walks the
 // pixels p0, p0 + kThreads / ch, ...: consecutive threads read
 // consecutive elements.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           const T* dy, const T* scale,
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           const float* dy, const float* scale,
                                            int relu, int64_t b, int D, int N,
                                            int ch, int d_first, int nrows,
                                            int n0) {
@@ -790,8 +789,7 @@ dtc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int64_t b = blockIdx.z;
   const int n0 = blockIdx.x * NB, d0 = blockIdx.y * DC;
   for (int i = threadIdx.x; i < 3 * C * F; i += kThreads) ws[i] = w[i];
-  stage_rows<float>(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2,
-                    n0);
+  stage_rows(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2, n0);
   __syncthreads();
 
   const int fg = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 7,
@@ -837,7 +835,7 @@ dtc_dx_kernel(const float* __restrict__ y, const float* __restrict__ dy,
     const int f = rem / C, c = rem - f * C;
     ws[i] = w[(2 - t) * C * F + c * F + f];
   }
-  stage_rows<float>(zs, y, dy, inv, relu, b, D, N, F, d0 - 1, DC + 2, n0);
+  stage_rows(zs, y, dy, inv, relu, b, D, N, F, d0 - 1, DC + 2, n0);
   __syncthreads();
 
   const int fg = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 7,
@@ -885,9 +883,8 @@ dtc_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
   for (int d0 = 0; d0 < D; d0 += DC) {
     __syncthreads();                 // previous chunk's readers are done
-    stage_rows<float>(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2,
-                      n0);
-    stage_rows<float>(ms, y, dy, nullptr, relu, b, D, N, F, d0, DC, n0);
+    stage_rows(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2, n0);
+    stage_rows(ms, y, dy, nullptr, relu, b, D, N, F, d0, DC, n0);
     __syncthreads();
 
     // d inv / d off: z of this thread's tile, reduced into `red`

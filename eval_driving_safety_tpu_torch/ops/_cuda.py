@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every launcher, per library (all return int status)
+# C signature of every launcher, per library (all return an int status)
 SIGNATURES = {
     "psv_warp": {
         "psv_warp_forward": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -50,11 +50,7 @@ SIGNATURES = {
                             _P),
         "dtc_backward_w": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P),
-    },
-}
-# size queries (no stream; the result is the answer, not a status)
-QUERIES = {
-    "depth_tap_conv": {
+        # a size query (no stream; it returns the size, not a status)
         "dtc_wgrad_workspace_bytes": (_I, _I, _I, _I, _I),
     },
 }
@@ -156,8 +152,7 @@ def _load(name: str) -> ctypes.CDLL:
         if job:
             _finish_build(job)
         lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in {**SIGNATURES[name],
-                             **QUERIES.get(name, {})}.items():
+        for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
