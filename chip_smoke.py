@@ -42,6 +42,16 @@ Phases (any failure ends the run with a non-zero exit):
      shapes phase 2 timed, the weight gradient once per depth-tap
      forward; run the attack CLI on the last checkpoint; time the
      steady-state training step and profile one (`train_step`).
+  6. predict (cli/predict_and_save.py): the decode of the same
+     paper-scale outputs on the card and on the CPU (score threshold 0:
+     the same kept boxes); the CLI at --scale paper over phase 4's last
+     attacked frames with AP, depth metrics and every export, launching
+     K1 and K3 only at phase 2's forward shapes, twice with
+     byte-identical txts; each --patch_mode with the card's composite
+     equal to the CPU's; steady-state pairs/s, busy share, peak memory,
+     host syncs per batch and the postprocessor's share
+     (`predict_steady_state`); and, in phase 5, the CLI at --scale
+     default on the last training checkpoint.
 The line before the last is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
 step); the last line is {"ok": true, "device": {...}}.
@@ -1158,6 +1168,363 @@ def train_steady_state(cfg, dev, card):
     return rec
 
 
+# --------------------------------------------------------------- phase 6
+
+# the kernels a forward launches: K1 once and K3 8 times per frame pair
+PREDICT_PER_PAIR = {"psv_warp_fwd": 1, "depth_tap_conv_fwd": 8}
+
+
+def predict_launches_ok(launches, pairs):
+    """The predict path launches K1 and K3 only, at their per-pair
+    counts: no backward kernel."""
+    return all(launches[k] == PREDICT_PER_PAIR.get(k, 0) * pairs
+               for k in launches)
+
+
+def raised_bias_weights(cfg, path):
+    """Seeded weights with the BEV class bias raised from -4.59 to +1.0:
+    random weights score every cell under the default threshold, so the
+    txts would be empty and NMS idle. Saved as a state dict for --ckpt."""
+    import torch
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    model = DSGN(cfg).init_weights(0)
+    with torch.no_grad():
+        model.BEVHead_0.cls.bias.fill_(1.0)
+    torch.save(model.state_dict(), path)
+    return model
+
+
+def write_depth_gt(root, ids):
+    """Seeded sparse depth ground truth (a lidar-like 5% of the pixels)."""
+    import numpy as np
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(6)
+    for fid in ids:
+        d = np.where(rng.rand(375, 1242) < 0.05,
+                     rng.uniform(2.0, 60.0, (375, 1242)), 0.0)
+        np.save(os.path.join(root, fid + ".npy"), d.astype(np.float32))
+
+
+def decode_card_vs_cpu(tmp, cfg, dev):
+    """(1) The decode of the same paper-scale outputs (the raised-bias
+    weights on phase 4's last attacked pair) on the card and on the CPU
+    with score_thresh 0, so all 256 candidates enter NMS: kept map
+    indices, classes and masks identical, boxes and scores within 1e-5
+    relative. Returns the card decode's time at the default threshold,
+    fetch included."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import (
+        Normalizer, upload)
+    from eval_driving_safety_tpu_torch.config import replace
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_dsgn_batch_u8)
+    adv = os.path.join(tmp, "signs", "dsgn_pgd_iters_3")
+    ds = KittiStereoDataset(os.path.join(tmp, "kitti"),
+                            image_2_dir=os.path.join(adv, "image_2"),
+                            image_3_dir=os.path.join(adv, "image_3"))
+    frames = prepare_dsgn_batch_u8([ds.get(0)], cfg.input)
+    model = raised_bias_weights(cfg, os.path.join(tmp, "raised_bias.pt"))
+    model = model.to(dev).requires_grad_(False).eval()
+    from eval_driving_safety_tpu_torch.inference.fcos3d_post import (
+        decode_bev_outputs, fetch_detections)
+    from eval_driving_safety_tpu_torch.ops import nms
+    cfg0 = replace(cfg, score_thresh=0.0)
+    il, ir, calib = upload(frames, dev)
+    with torch.inference_mode():
+        norm = Normalizer(cfg, dev)
+        out = model(norm(il), norm(ir), *calib)
+        heads = {k: out[k] for k in ("bbox_cls", "bbox_reg",
+                                     "bbox_centerness")}
+        syncs = nms.host_syncs["nms_fixpoint"]
+        card = fetch_detections(decode_bev_outputs(heads, cfg0))
+        syncs = nms.host_syncs["nms_fixpoint"] - syncs
+        cpu = fetch_detections(decode_bev_outputs(
+            {k: v.cpu() for k, v in heads.items()}, cfg0))
+        flat = torch.sigmoid(heads["bbox_cls"].double()) * torch.sigmoid(
+            heads["bbox_centerness"].double())[..., None]
+        top = torch.sort(flat.reshape(-1), descending=True).values[:256]
+        ties = 256 - int(torch.unique(top).numel())
+
+        def decode():
+            return fetch_detections(decode_bev_outputs(heads, cfg))
+        decode_ms = time_ms(decode, reps=20)
+    check(np.array_equal(card.index, cpu.index)
+          and np.array_equal(card.valid, cpu.valid)
+          and np.array_equal(card.classes, cpu.classes),
+          f"decode card vs cpu: kept {card.index[card.valid].tolist()} vs "
+          f"{cpu.index[cpu.valid].tolist()}")
+    check(int(card.valid.sum()) == cfg.max_detections,
+          f"score_thresh 0: {int(card.valid.sum())} kept")
+    for name, a, b in (("boxes", card.boxes3d, cpu.boxes3d),
+                       ("scores", card.scores, cpu.scores)):
+        err = float(np.abs(a - b).max())
+        check(err <= 1e-5 * float(np.abs(b).max()),
+              f"decode card vs cpu: {name} differ by {err:.3g}")
+    rec = {"kept": int(card.valid.sum()), "tied_scores_in_top256": ties,
+           "nms_fixpoint_syncs": syncs,
+           "box_max_abs_err": float(np.abs(card.boxes3d
+                                           - cpu.boxes3d).max()),
+           "decode_ms": decode_ms}
+    log(json.dumps({"predict_decode_card_vs_cpu": rec}))
+    return decode_ms
+
+
+def predict_layout_ok(res, ids, cfg, depth_dir=None, lidar_dir=None,
+                      plot=False):
+    import numpy as np
+    for fid in ids:
+        txt = os.path.join(res, "data", fid + ".txt")
+        check(os.path.exists(txt), f"missing {txt}")
+        with open(txt) as f:
+            lines = f.read().splitlines()
+        check(all(len(ln.split(" ")) == 16 for ln in lines),
+              f"{txt}: not 16-field KITTI lines")
+        if depth_dir:
+            d = np.load(os.path.join(depth_dir, fid + ".npy"))
+            hw = (cfg.input.height, cfg.input.width)
+            check(d.shape == hw and np.isfinite(d).all(),
+                  f"depth map {fid}: {d.shape}")
+        if lidar_dir:
+            n = os.path.getsize(os.path.join(lidar_dir, fid + ".bin"))
+            check(n > 0 and n % 16 == 0, f"pseudo-lidar {fid}: {n} bytes")
+        if plot:
+            check(os.path.getsize(os.path.join(res, "refer", fid + ".png"))
+                  > 0, f"no panel for {fid}")
+
+
+def scale_cfg(scale):
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    return {"paper": DSGNConfig.full, "default": DSGNConfig,
+            "tiny": DSGNConfig.tiny}[scale]()
+
+
+def predict_cli(tmp, dev, fwd_shapes, scale="paper"):
+    """(2) The predict CLI at --scale paper over phase 4's last attacked
+    dirs, with AP, depth metrics and every export: K1 and K3 only, at
+    phase 2's forward shapes; a second run writes byte-identical txts."""
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    ids = ["000001", "000002"]
+    data = os.path.join(tmp, "kitti")
+    adv = os.path.join(tmp, "signs", "dsgn_pgd_iters_3")
+    write_depth_gt(os.path.join(tmp, "depth_gt"), ids)
+    ckpt = os.path.join(tmp, "raised_bias.pt")
+    cfg = scale_cfg(scale)
+    raised_bias_weights(cfg, ckpt)
+    common = ["--data_path", data, "--detector", "dsgn", "--scale", scale,
+              "--device", str(dev), "--ckpt", ckpt,
+              "--image_2_dir", os.path.join(adv, "image_2"),
+              "--image_3_dir", os.path.join(adv, "image_3")]
+    exports = ["--eval_ap", "--depth_dir", os.path.join(tmp, "depth_gt"),
+               "--save_depth_dir", os.path.join(tmp, "pred_depth"),
+               "--save_lidar_dir", os.path.join(tmp, "pred_lidar"), "--plot"]
+    _cuda.reset_launches()
+    t_a, _, out = run_cli(common + exports + [
+        "--result_dir", os.path.join(tmp, "pred_a")], predict_main)
+    launches = dict(_cuda.launches)
+    shapes = dict(_cuda.launch_shapes)
+    check(predict_launches_ok(launches, len(ids)),
+          f"predict launches {launches}: K1 and K3 only, per pair "
+          f"{PREDICT_PER_PAIR}")
+    check({(k, s) for k, s, _ in shapes} == fwd_shapes
+          and {dt for _, _, dt in shapes} == {"bfloat16"},
+          f"predict launch shapes {sorted(shapes)} != phase-2 forward "
+          f"shapes {sorted(fwd_shapes)}")
+    check("AP (Car, moderate, IoU 0.70)" in out and "depth error" in out,
+          f"predict CLI output: {out[-400:]}")
+    predict_layout_ok(os.path.join(tmp, "pred_a"), ids, cfg,
+                      os.path.join(tmp, "pred_depth"),
+                      os.path.join(tmp, "pred_lidar"), plot=True)
+    with open(os.path.join(tmp, "pred_a", "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    check(len(recs) == 2 and "ap_table" in recs[1]
+          and math.isfinite(recs[0]["depth_mean_err"]),
+          f"metrics.jsonl: {recs}")
+    t_b, _, _ = run_cli(common + ["--result_dir", os.path.join(
+        tmp, "pred_b")], predict_main)
+    n_lines = 0
+    for fid in ids:
+        rel = os.path.join("data", fid + ".txt")
+        with open(os.path.join(tmp, "pred_a", rel), "rb") as fa, \
+                open(os.path.join(tmp, "pred_b", rel), "rb") as fb:
+            a = fa.read()
+            check(a == fb.read(), f"{rel}: two predict runs differ")
+        n_lines += a.count(b"\n")
+    check(n_lines > 0, "the predict runs exported no detection")
+    rec = {"run_s": t_a, "rerun_s": t_b, "pairs": len(ids),
+           "detections": n_lines, "launches": launches,
+           "ap_moderate": {k: recs[1][k] for k in ("ap_bbox", "ap_bev",
+                                                   "ap_3d")},
+           "depth_mean_err_m": recs[0]["depth_mean_err"]}
+    log(json.dumps({"predict_cli": rec}))
+    return launches
+
+
+def predict_patch_modes(tmp, dev, scale="paper"):
+    """(4) --patch_npy in each of the four --patch_mode bands: the input
+    the card composited (saved by --save_input_dir) equals the CPU
+    composite of the same frame, and the patch composited on the card
+    equals the CPU's bit for bit."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        patch_dim_for, save_patch)
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import (
+        composite, main as predict_main)
+    from eval_driving_safety_tpu_torch.config import PLACEMENT_BANDS
+    from eval_driving_safety_tpu_torch.data.dataset import u8_to_01
+    from eval_driving_safety_tpu_torch.data.kitti import (load_image_u8,
+                                                          pad_to)
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    data = os.path.join(tmp, "kitti")
+    d = patch_dim_for(375, 0.2)
+    rng = np.random.RandomState(8)
+    pnpy = os.path.join(tmp, "patch.npy")
+    save_patch(pnpy, torch.from_numpy(rng.rand(d, d, 3).astype(np.float32)))
+    inp_cfg = scale_cfg(scale).input
+    clean = [pad_to(load_image_u8(os.path.join(data, sub, "000001.png")),
+                    inp_cfg.height, inp_cfg.width)[None]
+             for sub in ("image_2", "image_3")]
+    rec = {}
+    for mode in PLACEMENT_BANDS:
+        _cuda.reset_launches()
+        inp = os.path.join(tmp, f"patch_in_{mode}")
+        run_cli(["--data_path", data, "--detector", "dsgn", "--scale",
+                 scale, "--device", str(dev), "--debug", "--debugnum",
+                 "1", "--patch_npy", pnpy, "--patch_mode", mode,
+                 "--save_input_dir", inp, "--result_dir",
+                 os.path.join(tmp, f"patch_res_{mode}")], predict_main)
+        check(predict_launches_ok(dict(_cuda.launches), 1),
+              f"--patch_mode {mode}: launches {dict(_cuda.launches)}")
+        with torch.inference_mode():
+            card = composite(pnpy, mode, 0, *(u8_to_01(torch.from_numpy(
+                c).to(dev)) for c in clean))
+            cpu = composite(pnpy, mode, 0, *(u8_to_01(torch.from_numpy(c))
+                                              for c in clean))
+        for k, sub in enumerate(("image_2", "image_3")):
+            check(torch.equal(card[k].cpu(), cpu[k]),
+                  f"--patch_mode {mode} {sub}: card composite != cpu")
+            saved = load_image_u8(os.path.join(inp, sub, "000001.png"))
+            want = np.clip(cpu[k][0].numpy() * 255.0, 0, 255).astype(
+                np.uint8)
+            check(np.array_equal(saved, want),
+                  f"--patch_mode {mode} {sub}: saved input != cpu composite")
+        cols = np.nonzero((saved != clean[1][0]).any(-1).any(0))[0]
+        rec[mode] = [int(cols.min()), int(cols.max())] if cols.size else []
+    log(json.dumps({"predict_patch_modes": {"patch_dim": d,
+                                            "right_view_columns": rec}}))
+
+
+def predict_on_checkpoint(tmp, dev, fwd_shapes):
+    """(3) The predict CLI at --scale default on phase 5's last
+    checkpoint."""
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    ck = os.path.join(tmp, "ckpts", "epoch3")
+    res = os.path.join(tmp, "pred_ckpt")
+    _cuda.reset_launches()
+    t, _, out = run_cli(["--data_path", os.path.join(tmp, "kitti"),
+                         "--detector", "dsgn", "--scale", "default",
+                         "--device", str(dev), "--ckpt", ck,
+                         "--result_dir", res, "--eval_ap"], predict_main)
+    launches = dict(_cuda.launches)
+    shapes = {(k, s) for k, s, _ in _cuda.launch_shapes}
+    check(f"loaded DSGN weights from {ck}" in out
+          and predict_launches_ok(launches, 2) and shapes == fwd_shapes,
+          f"predict on the trained checkpoint: launches {launches}, shapes "
+          f"{sorted(shapes)}")
+    predict_layout_ok(res, ["000001", "000002"], scale_cfg("default"))
+    log(json.dumps({"predict_on_checkpoint": {"run_s": t,
+                                              "launches": launches}}))
+
+
+def predict_steady_state(tmp, dev, card, decode_ms, scale="paper"):
+    """(5) Steady-state predict at --scale paper, batch 1, as the CLI runs
+    it (PNG decodes prefetched on threads, upload, forward, decode, one
+    fetch, txt writes): the CLI over 12 batches of two frames in turn,
+    pairs/s from its per-batch times after the first two; the same loop
+    in this process for the peak memory, the host syncs per batch and a
+    profile of 4 pairs (kernel time per pair over the pair's time: the
+    device busy share). The postprocessor's share is the decode's time
+    (`decode_card_vs_cpu`) over the pair's."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import (
+        Normalizer, export_txts, main as predict_main, predict, upload)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_dsgn_batch_u8)
+    from eval_driving_safety_tpu_torch.ops import nms
+    cfg = scale_cfg(scale)
+    data = os.path.join(tmp, "kitti")
+    split = os.path.join(tmp, "steady.txt")
+    with open(split, "w") as f:
+        f.write("000001\n000002\n" * 7)
+    ckpt = os.path.join(tmp, "raised_bias.pt")
+    _, _, out = run_cli(["--data_path", data, "--split_file", split,
+                         "--debug", "--debugnum", "12",
+                         "--detector", "dsgn", "--scale", scale,
+                         "--device", str(dev), "--ckpt", ckpt,
+                         "--result_dir", os.path.join(tmp, "pred_steady")],
+                        predict_main)
+    batch_ms = [float(m) for m in re.findall(
+        r"exported 1 frames \(([\d.]+) ms\)", out)]
+    check(len(batch_ms) == 12, f"steady-state batches {batch_ms}")
+    pair_ms_cli = float(np.median(batch_ms[2:]))
+
+    model = raised_bias_weights(cfg, ckpt).to(dev).requires_grad_(False)
+    model.eval()
+    norm = Normalizer(cfg, dev)
+    ds = KittiStereoDataset(data, split_file=split)       # 14 pairs
+    res = os.path.join(tmp, "pred_inproc")
+
+    def pairs():
+        for b in ds.batches(1, prepare=lambda s: prepare_dsgn_batch_u8(
+                s, cfg.input)):
+            il, ir, calib = upload(b, dev)
+            dets, _ = predict(model, cfg, norm, il, ir, calib)
+            export_txts(res, b, dets)
+            yield
+
+    with torch.inference_mode():
+        it = pairs()
+        for _ in range(2):
+            next(it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = nms.host_syncs["nms_fixpoint"]
+        n = 8
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        torch.cuda.synchronize()
+        pair_ms = (time.perf_counter() - t0) / n * 1e3
+        syncs = (nms.host_syncs["nms_fixpoint"] - syncs) / n
+        peak = torch.cuda.max_memory_allocated()
+        rows, total_us, port_us = profile_kernels(lambda: list(it))
+    kernel_ms = total_us / 1e3 / 4
+    rec = {
+        "scale": scale, "batch": 1,
+        "pairs_per_s": 1e3 / pair_ms_cli, "pair_ms_cli": pair_ms_cli,
+        "cli_batch_ms": batch_ms,
+        "pair_ms_in_process": pair_ms,
+        "peak_device_mem_gib": peak / 2 ** 30,
+        "kernel_ms_per_pair": kernel_ms,
+        "device_busy_share": kernel_ms / pair_ms,
+        "port_kernel_ms_per_pair": port_us / 1e3 / 4,
+        "decode_ms": decode_ms,
+        "postprocessor_share": decode_ms / pair_ms,
+        "host_syncs_per_batch": {"nms_fixpoint_checks": syncs,
+                                 "detection_fetch": 1},
+        "top_kernels_ms_in_4_pairs": [[k[:70], c, us / 1e3]
+                                      for us, k, c in rows[:16]],
+        "card": card}
+    log(json.dumps({"predict_steady_state": rec}))
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1205,9 +1572,17 @@ def main():
     tiny_card_vs_cpu(dev)
     torch.cuda.empty_cache()
 
-    # 4. the slice at paper scale, then steady state
+    # 4. the slice at paper scale; 6. predict over its attacked frames
+    # (in its directory), then the attack's steady state
+    fwd_shapes = {(k, s) for k, s, dt in per
+                  if dt == full.dtype and k in PREDICT_PER_PAIR}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, shapes, widths, n_iters = the_slice(tmp, card, dev)
+        p_launches = predict_cli(tmp, dev, fwd_shapes)
+        predict_patch_modes(tmp, dev)
+        decode_ms = decode_card_vs_cpu(tmp, full, dev)
+        torch.cuda.empty_cache()
+        predict_steady_state(tmp, dev, card, decode_ms)
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
 
@@ -1243,6 +1618,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         t_launches, t_counts = training(
             tmp, dev, {(k, s) for k, s, _ in timed_t})
+        # 6. predict at DSGNConfig() on the last checkpoint
+        predict_on_checkpoint(tmp, dev, {(k, s) for k, s, _ in timed_t
+                                         if k in PREDICT_PER_PAIR})
     torch.cuda.empty_cache()
     train_steady_state(cfg_t, dev, card)
     log(json.dumps({"kernel_detail_train": detail_rows(timed_t, t_counts)}))
@@ -1284,6 +1662,9 @@ def main():
             "launches_per_attack_iter": r["launches_per_iter"]
             if on_attack else 0,
             "launches_per_train_step": rec_t[name]["launches_per_iter"],
+            # the predict path: the forward kernels only
+            "predict_launches": p_launches[name],
+            "launches_per_predict_pair": PREDICT_PER_PAIR.get(name, 0),
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),

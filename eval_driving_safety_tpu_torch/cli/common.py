@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 
@@ -135,4 +136,14 @@ def use_deterministic_kernels(device) -> None:
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def metrics_path(out_dir: str) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    return os.path.join(out_dir, "metrics.jsonl")
+
+
+def append_metrics(path: str, record: dict) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
 

@@ -115,3 +115,13 @@ class PGDConfig:
     pixel_min: float = 0.0
     pixel_max: float = 1.0
     save_intermediate: bool = True
+
+
+# column bands of the eval-time patch placement (--patch_mode): fractions
+# of the width between which the centre column is drawn
+PLACEMENT_BANDS = {
+    "random": (0.2, 0.8),
+    "sp_left": (0.2, 0.4),
+    "sp_straight": (0.4, 0.6),
+    "sp_right": (0.6, 0.8),
+}

@@ -1,7 +1,7 @@
-"""KITTI data layer: calibration, labels, u8 image IO.
+"""KITTI data layer: calibration, labels, detection txts, u8 image IO.
 
-Counterpart of the parts of eval_driving_safety_tpu/data/kitti.py that the
-attack sweep uses, with the same file formats. Images are read with cv2
+Counterpart of eval_driving_safety_tpu/data/kitti.py for the attack,
+training and predict paths, with the same file formats. Images are read with cv2
 or PIL when one is installed, else with the small PNG decoder here
 (8-bit RGB/RGBA, non-interlaced, all five row filters); they are written
 as PNGs by zlib alone, so the sweep needs neither library.
@@ -12,7 +12,7 @@ import os
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -30,6 +30,10 @@ class Calibration:
     @property
     def f_u(self) -> float:
         return float(self.P2[0, 0])
+
+    @property
+    def f_v(self) -> float:
+        return float(self.P2[1, 1])
 
     @property
     def c_u(self) -> float:
@@ -104,10 +108,54 @@ class KittiObject:
             rotation_y=float(e[14]),
             score=float(e[15]) if len(e) > 15 else None)
 
+    def to_line(self) -> str:
+        parts = [
+            self.type,
+            f"{self.truncated:.2f}", f"{int(self.occluded)}",
+            f"{self.alpha:.2f}",
+            *(f"{v:.2f}" for v in self.bbox),
+            *(f"{v:.2f}" for v in self.dimensions),
+            *(f"{v:.2f}" for v in self.location),
+            f"{self.rotation_y:.2f}",
+        ]
+        if self.score is not None:
+            parts.append(f"{self.score:.8f}")
+        return " ".join(parts)
+
 
 def read_label(path: str) -> List[KittiObject]:
     with open(path) as f:
         return [KittiObject.from_line(ln) for ln in f if ln.strip()]
+
+
+def format_detection_line(cls_name: str, alpha: float, bbox, h: float,
+                          w: float, l: float, x: float, y: float, z: float,
+                          ry: float, score: float) -> str:
+    """One detection in the 16-field KITTI format of the reference's DSGN
+    writer; `y` is the box's bottom."""
+    return (
+        "{} -1 -1 {:.4f} {:.4f} {:.4f} {:.4f} {:.4f} {:.6f} {:.6f} {:.6f} "
+        "{:.6f} {:.6f} {:.6f} {:.6f} {:.8f}".format(
+            cls_name, alpha, bbox[0], bbox[1], bbox[2], bbox[3],
+            h, w, l, x, y, z, ry, score))
+
+
+def write_detections(path: str, detections: Sequence[dict]) -> None:
+    """Write one image's detections: dicts with type, bbox (4,),
+    dimensions (h, w, l), location (x, y_bottom, z), rotation_y, score
+    and an optional alpha, which defaults to -atan2(x, z) + ry."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for d in detections:
+            x, y, z = d["location"]
+            h, w, l = d["dimensions"]
+            ry = d["rotation_y"]
+            alpha = d.get("alpha")
+            if alpha is None:
+                alpha = -np.arctan2(x, z) + ry
+            f.write(format_detection_line(
+                d["type"], alpha, d["bbox"], h, w, l, x, y, z, ry,
+                d["score"]) + "\n")
 
 
 def pad_to(img: np.ndarray, height: int, width: int) -> np.ndarray:
