@@ -52,6 +52,21 @@ Phases (any failure ends the run with a non-zero exit):
      host syncs per batch and the postprocessor's share
      (`predict_steady_state`); and, in phase 5, the CLI at --scale
      default on the last training checkpoint.
+  7. the patch attack and the checkpoint-compat model: (a) the patch CLI
+     at --scale paper over phase 4's frames, 2 epochs of 2 steps per
+     frame, launching K1, K2, K3 and K4 dx at phase 2's shapes (1, 1, 8
+     and 8 per step) and never the weight gradient, each epoch's change
+     within eps x steps and none outside the circle, and a second run
+     from the same epoch0 writing the same bytes; (b) one tiny fp32
+     patch step on the card and on the CPU; (c) the steady-state patch
+     step (`patch_steady_state`); (d) a random checkpoint at the
+     upstream default arch in the published layout (DataParallel keys,
+     BatchNorm statistics), read with no key unmapped by the attack,
+     predict and patch CLIs at --scale paper, launching K1 once per
+     forward, K2 once per backward and nothing else of the port; (e)
+     the tiny compat model on the card and on the CPU; (f) the compat
+     attack iteration's steady state and profile, its cuDNN 3D convs'
+     time (`compat_steady_state`).
 The line before the last is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
 step); the last line is {"ok": true, "device": {...}}.
@@ -891,15 +906,14 @@ def profile_kernels(fn):
     return rows, total_us, port_us
 
 
-def steady_state(cfg, dev, card):
+def steady_attack(model, cfg, dev, n=5):
     """Steady-state attack iteration (loss + input gradient + update) of
-    config `cfg` on one seeded frame pair, and a profile of one."""
+    `model` at config `cfg` on one seeded frame pair: its time and the
+    peak memory, and `attack(k)`, which runs k iterations."""
     import numpy as np
     import torch
     from eval_driving_safety_tpu_torch.attack import objectives as O
     from eval_driving_safety_tpu_torch.attack.pgd import pgd_attack
-    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
-    model = DSGN(cfg).init_weights(0).to(dev).requires_grad_(False)
     rng = np.random.RandomState(1)
     t = lambda a: torch.as_tensor(a).to(dev)
     hw = (cfg.input.height, cfg.input.width)
@@ -917,28 +931,35 @@ def steady_state(cfg, dev, card):
         out = model((a - mean) / std, (b - mean) / std, *calib)
         return O.total_loss(out, depth, boxes, t(np.array([1])), cfg)
 
-    def attack(n):
-        return pgd_attack(loss_fn, il, ir, num_iters=n, alpha=1.0, eps=76.5,
+    def attack(k):
+        return pgd_attack(loss_fn, il, ir, num_iters=k, alpha=1.0, eps=76.5,
                           clip_min=0.0, clip_max=255.0, collect="signs1")
 
     attack(2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = 5
     t0 = time.perf_counter()
     res = attack(n)
     torch.cuda.synchronize()
     per_iter = (time.perf_counter() - t0) / n
     check(bool(torch.isfinite(res.losses).all()), "steady-state losses")
     peak = torch.cuda.max_memory_allocated()
+    return {"attack_iter_ms": per_iter * 1e3,
+            "attack_iters_per_s": 1.0 / per_iter,
+            "peak_device_mem_gib": peak / 2 ** 30}, attack
+
+
+def steady_state(cfg, dev, card):
+    """Steady-state attack iteration of the port's DSGN at config `cfg`,
+    and a profile of one."""
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    model = DSGN(cfg).init_weights(0).to(dev).requires_grad_(False)
+    ss, attack = steady_attack(model, cfg, dev)
     rows, total_us, port_us = profile_kernels(lambda: attack(1))
     log(json.dumps({"steady_state": {
-        "depth_planes": cfg.num_depth_planes,
-        "attack_iter_ms": per_iter * 1e3,
-        "attack_iters_per_s": 1.0 / per_iter,
-        "peak_device_mem_gib": peak / 2 ** 30,
+        "depth_planes": cfg.num_depth_planes, **ss,
         "profiled_kernel_ms": total_us / 1e3,
-        "device_busy_share": (total_us / 1e3) / (per_iter * 1e3),
+        "device_busy_share": (total_us / 1e3) / ss["attack_iter_ms"],
         "port_kernel_ms": port_us / 1e3,
         "top_kernels_ms": [[k[:70], c, us / 1e3] for us, k, c in rows[:16]],
         "card": card}}))
@@ -1525,6 +1546,427 @@ def predict_steady_state(tmp, dev, card, decode_ms, scale="paper"):
     return rec
 
 
+# --------------------------------------------------------------- phase 7
+
+# the kernels a patch step launches (a forward and the patch's input
+# gradient through frozen weights), and a compat model's forward and
+# attack iteration (its 3D convs are library convs)
+PATCH_PER_STEP = {"psv_warp_fwd": 1, "psv_warp_bwd": 1,
+                  "depth_tap_conv_fwd": 8, "depth_tap_conv_bwd": 8}
+COMPAT_PER_ITER = {"psv_warp_fwd": 1, "psv_warp_bwd": 1}
+COMPAT_PER_PAIR = {"psv_warp_fwd": 1}
+
+
+def launches_are(launches, per, n):
+    """Every kernel launched exactly `per[kernel]` times `n` (0 if not
+    in `per`)."""
+    return all(v == per.get(k, 0) * n for k, v in launches.items())
+
+
+def patch_change_ok(save_dir, dim, bound):
+    """The (1, 3, dim, dim) patch files of epochs 0..N: each epoch moves
+    the patch by at most `bound` and nothing outside the circle moves.
+    Returns the largest change of each epoch."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.attack.patch import circular_mask
+    outside = np.asarray(circular_mask(dim))[..., 0] == 0
+    epochs = sorted(int(n[5:]) for n in os.listdir(save_dir)
+                    if n.startswith("epoch"))
+    patches = []
+    for e in epochs:
+        raw = np.load(os.path.join(save_dir, f"epoch{e}", "patch.npy"))
+        check(raw.shape == (1, 3, dim, dim) and raw.dtype == np.float32
+              and np.isfinite(raw).all(),
+              f"{save_dir} epoch{e}: patch {raw.shape} {raw.dtype}")
+        patches.append(raw[0].transpose(1, 2, 0))
+    changes = []
+    for e in range(1, len(patches)):
+        diff = np.abs(patches[e] - patches[e - 1])
+        check(0 < diff.max() <= bound * (1 + 1e-6),
+              f"epoch{e}: the patch moved by {diff.max()} (bound {bound})")
+        check(not diff[outside].any(), f"epoch{e}: pixels outside the "
+              "circle changed")
+        changes.append(float(diff.max()))
+    return epochs, changes
+
+
+def patch_cli(tmp, dev, phase2_shapes, scale="paper"):
+    """(a) The patch CLI at --scale paper over phase 4's two frames, 2
+    epochs of 2 steps per frame: the (1, 3, 77, 77) files, each epoch's
+    change within eps x steps and none outside the circle, K1, K2, K3 and
+    K4 dx at phase 2's shapes (1, 1, 8, 8 per step) and no weight
+    gradient; a second run from the same epoch0 writes the same bytes."""
+    import shutil
+    from eval_driving_safety_tpu_torch.attack.patch import patch_dim_for
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        main as patch_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    frames, epochs, iters, eps = 2, 2, 2, 8 / 255
+    common = ["--data_path", os.path.join(tmp, "kitti"), "--detector", "dsgn",
+              "--scale", scale, "--device", str(dev), "--epochs",
+              str(epochs), "--iters", str(iters)]
+    a, b = os.path.join(tmp, "patch_a"), os.path.join(tmp, "patch_b")
+    _cuda.reset_launches()
+    t_a, _, out = run_cli(common + ["--save_dir", a], patch_main)
+    launches, shapes = dict(_cuda.launches), dict(_cuda.launch_shapes)
+    steps = epochs * frames * iters
+    check(launches_are(launches, PATCH_PER_STEP, steps),
+          f"patch CLI launches {launches} in {steps} steps, expected "
+          f"{PATCH_PER_STEP} per step and no weight gradient")
+    check({(k, s) for k, s, _ in shapes} == phase2_shapes
+          and {dt for _, _, dt in shapes} == {"bfloat16"},
+          f"patch CLI launch shapes {sorted(shapes)} != phase-2 shapes")
+    losses = [float(v) for v in re.findall(r"avg loss (\S+)", out)]
+    check(len(losses) == epochs and all(map(math.isfinite, losses)),
+          f"patch CLI losses {losses}")
+    dim = patch_dim_for(scale_cfg(scale).height, 0.2)
+    check(f"patch dim {dim} (radius {dim // 2})" in out, "patch dim")
+    _, changes = patch_change_ok(a, dim, eps * iters * frames)
+    shutil.copytree(os.path.join(a, "epoch0"), os.path.join(b, "epoch0"))
+    t_b, _, _ = run_cli(common + ["--save_dir", b], patch_main)
+    for e in range(1, epochs + 1):
+        rel = os.path.join(f"epoch{e}", "patch.npy")
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            check(fa.read() == fb.read(), f"{rel}: two patch runs differ")
+    log(json.dumps({"patch_cli": {
+        "scale": scale, "frames": frames, "epochs": epochs,
+        "iters": iters, "steps": steps, "run_s": t_a, "rerun_s": t_b,
+        "epoch_losses": losses, "epoch_max_change": changes,
+        "launches": launches, "patch_dim": dim}}))
+    return launches, steps
+
+
+def tiny_frames(b=1):
+    import numpy as np
+    rng = np.random.RandomState(0)
+    il = rng.randint(0, 256, (b, 96, 320, 3)).astype(np.uint8)
+    ir = np.clip(np.roll(il.astype(int), -6, axis=2)
+                 + rng.randint(-8, 9, il.shape), 0, 255).astype(np.uint8)
+    calib = [np.full((b,), v, np.float32) for v in (180.0, 0.54, 160.0,
+                                                    48.0)]
+    boxes = np.zeros((b, 4, 8), np.float32)
+    boxes[:, 0] = [2.0, 1.6, 18.0, 1.5, 1.7, 4.0, 0.4, 1.0]
+    return il, ir, calib, boxes
+
+
+def card_vs_cpu(name, run, per, dev):
+    """`run(device)` -> (loss, [gradients]) on the CPU and the card: loss
+    within 1e-4 relative, gradients within 1e-3 x their largest (fp32,
+    TF32 off: the same arithmetic summed in other orders), and the card
+    run launching exactly `per`."""
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    lc, gc = run("cpu")
+    before = dict(_cuda.launches)
+    lk, gk = run(dev)
+    moved = {k: _cuda.launches[k] - before[k] for k in before}
+    check(abs(lk - lc) <= 1e-4 * abs(lc), f"{name}: loss card {lk} cpu {lc}")
+    ge = max(max_err(k.cpu(), c) / float(c.abs().max())
+             for k, c in zip(gk, gc))
+    check(ge <= 1e-3, f"{name}: gradient card vs cpu: rel err {ge:.3g}")
+    check(launches_are(moved, per, 1),
+          f"{name}: card launches {moved}, expected {per}")
+    log(json.dumps({name: {"loss_card": lk, "loss_cpu": lc,
+                           "grad_max_rel_err": ge, "launches": moved}}))
+
+
+def tiny_patch_card_vs_cpu(dev):
+    """(b) One patch step of the tiny fp32 DSGN on the card and the CPU,
+    the same weights, frames and centres (a right view partly past the
+    left edge): loss and patch gradient."""
+    import torch
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        composite_patch_batch, patch_dim_for, patch_update_step)
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        ghost_car_targets
+    from eval_driving_safety_tpu_torch.config import (DSGNConfig,
+                                                      PatchConfig, replace)
+    from eval_driving_safety_tpu_torch.data.dataset import u8_to_01
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
+        dsgn_total_loss
+    cfg = replace(DSGNConfig.tiny(), dtype="float32")
+    il, ir, calib, _ = tiny_frames(2)
+    cpu_model = DSGN(cfg).init_weights(seed=3).requires_grad_(False)
+    d = patch_dim_for(96, 0.2)
+    patch = torch.rand(d, d, 3, generator=torch.Generator().manual_seed(4))
+    cl = torch.tensor([[60, 150], [70, 40]])
+    cr = cl + torch.tensor([0, -64])
+    boxes, num = ghost_car_targets(2, PatchConfig())
+
+    def run(device):
+        model = cpu_model if device == "cpu" else DSGN(cfg).requires_grad_(
+            False)
+        if device != "cpu":
+            model.load_state_dict(cpu_model.state_dict())
+            model.to(device)
+        t = lambda a: torch.as_tensor(a).to(device)
+        mean, std = t(cfg.input.mean), t(cfg.input.std)
+        l01, r01 = u8_to_01(t(il)), u8_to_01(t(ir))
+
+        def loss_fn(a, b):
+            out = model((a - mean) / std, (b - mean) / std,
+                        *(t(c) for c in calib))
+            return dsgn_total_loss(out, torch.zeros(l01.shape[:3],
+                                                    device=device),
+                                   t(boxes), t(num), cfg)[0]
+        p = t(patch).clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss_fn(
+            composite_patch_batch(l01, p, cl),
+            composite_patch_batch(r01, p, cr)), p)
+        new, loss = patch_update_step(loss_fn, t(patch), l01, r01, cl, cr,
+                                      alpha=1e3, eps=8 / 255)
+        check(bool(torch.isfinite(new).all()) and float(
+            (new - t(patch)).abs().max()) <= 8 / 255 + 1e-6,
+              f"{device}: the patch step moved beyond eps")
+        return float(loss), [g.cpu()]
+    card_vs_cpu("tiny_patch_step_card_vs_cpu", run,
+                {k: 2 * v for k, v in PATCH_PER_STEP.items()}, dev)
+
+
+def patch_steady_state(tmp, dev, card, scale="paper"):
+    """(c) Steady-state patch step at --scale paper, batch 1 (composite,
+    forward, patch gradient, clamp), as the CLI runs it on phase 4's
+    first frame, and a profile of one."""
+    import torch
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        patch_dim_for, patch_update_step)
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        ghost_car_targets
+    from eval_driving_safety_tpu_torch.config import PatchConfig
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_dsgn_batch_u8, u8_to_01)
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
+        dsgn_total_loss
+    cfg = scale_cfg(scale)
+    model = DSGN(cfg).init_weights(0).to(dev).requires_grad_(False)
+    b = prepare_dsgn_batch_u8([KittiStereoDataset(os.path.join(
+        tmp, "kitti")).get(0)], cfg.input)
+    t = lambda a: torch.as_tensor(a).to(dev)
+    il, ir = u8_to_01(t(b["im_left_u8"])), u8_to_01(t(b["im_right_u8"]))
+    calib = [t(b[k]) for k in ("f_u", "baseline", "c_u", "c_v")]
+    mean, std = t(cfg.input.mean), t(cfg.input.std)
+    boxes, num = (t(x) for x in ghost_car_targets(1, PatchConfig()))
+    depth = torch.zeros(il.shape[:3], device=dev)
+    d = patch_dim_for(cfg.height, 0.2)
+    cl = torch.tensor([[3 * cfg.height // 4, cfg.width // 2]])
+    cr = cl + torch.tensor([0, -64])
+
+    def loss_fn(a, c):
+        out = model((a - mean) / std, (c - mean) / std, *calib)
+        return dsgn_total_loss(out, depth, boxes, num, cfg)[0]
+
+    patch = torch.zeros(d, d, 3, device=dev)
+
+    def steps(n):
+        nonlocal patch
+        for _ in range(n):
+            patch, loss = patch_update_step(loss_fn, patch, il, ir, cl, cr,
+                                            alpha=1e3, eps=8 / 255)
+        return loss
+
+    steps(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    loss = steps(n)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    check(math.isfinite(float(loss)), "steady-state patch loss")
+    peak = torch.cuda.max_memory_allocated()
+    rows, total_us, port_us = profile_kernels(lambda: steps(1))
+    rec = {"scale": scale, "batch": 1,
+           "patch_step_ms": per_step * 1e3,
+           "patch_steps_per_s": 1.0 / per_step,
+           "peak_device_mem_gib": peak / 2 ** 30,
+           "step_kernel_ms": total_us / 1e3,
+           "device_busy_share": (total_us / 1e3) / (per_step * 1e3),
+           "port_kernel_ms": port_us / 1e3,
+           "top_kernels_ms": [[k[:70], c, us / 1e3]
+                              for us, k, c in rows[:16]],
+           "card": card}
+    log(json.dumps({"patch_steady_state": rec}))
+
+
+def random_compat_weights(cfg, arch, seed=0):
+    """The compat model with seeded weights and, as a trained checkpoint
+    has them, BatchNorm statistics, scales and shifts drawn at random."""
+    import torch
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import (
+        BatchNorm, DSGNCompat)
+    model = DSGNCompat(cfg, arch).init_weights(seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.normal_(1.0, 0.2, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    return model
+
+
+def write_compat_tar(path, cfg, arch):
+    """A random checkpoint in the published layout: {"state_dict":
+    {"module." + key: tensor}}, with BatchNorm's num_batches_tracked."""
+    import torch
+    sd = random_compat_weights(cfg, arch).state_dict()
+    out = {f"module.{k}": v for k, v in sd.items()}
+    for k in sd:
+        if k.endswith(".running_var"):
+            out[f"module.{k[:-len('running_var')]}num_batches_tracked"] = \
+                torch.tensor(1000)
+    torch.save({"state_dict": out}, path)
+
+
+def compat_clis(tmp, dev, scale="paper"):
+    """(d) A random checkpoint at the upstream default arch in the
+    published layout, read by the attack CLI (1 frame, 2 iterations), the
+    predict CLI (6 pairs) and the patch CLI (1 epoch of 2 frames, 2 steps
+    each) at --scale paper: no key left unmapped; K1 once per forward, K2
+    once per backward, nothing else of the port."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.attack.patch import patch_dim_for
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        main as patch_main
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import \
+        DSGNCompatArch
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    cfg = scale_cfg(scale)
+    tar = os.path.join(tmp, "finetune_53.tar")
+    write_compat_tar(tar, cfg, DSGNCompatArch())
+    data = os.path.join(tmp, "kitti")
+    common = ["--data_path", data, "--detector", "dsgn", "--scale", scale,
+              "--device", str(dev), "--ckpt", tar]
+    rec = {}
+    _cuda.reset_launches()
+    t, losses, out = run_cli(common + [
+        "--iter", "2", "--debug", "--debugnum", "1", "--out_prefix",
+        os.path.join(tmp, "compat_adv", "dsgn_pgd")])
+    check("upstream-compat model" in out and "unmapped 0" in out,
+          f"compat import: {out[:600]}")
+    check(len(losses) == 1 and all(map(math.isfinite, losses[0])),
+          f"compat attack losses {losses}")
+    rec["attack"] = {"run_s": t, "iters": 2, "losses": losses,
+                     "launches": dict(_cuda.launches)}
+    check(launches_are(_cuda.launches, COMPAT_PER_ITER, 2),
+          f"compat attack launches {rec['attack']['launches']}")
+    split = os.path.join(tmp, "compat_split.txt")
+    with open(split, "w") as f:
+        f.write("000001\n000002\n" * 3)
+    _cuda.reset_launches()
+    t, _, out = run_cli(common + ["--split_file", split, "--result_dir",
+                                  os.path.join(tmp, "compat_pred")],
+                        predict_main)
+    batch_ms = [float(m) for m in re.findall(
+        r"exported 1 frames \(([\d.]+) ms\)", out)]
+    check(len(batch_ms) == 6, f"compat predict batches {batch_ms}")
+    predict_layout_ok(os.path.join(tmp, "compat_pred"), ["000001", "000002"],
+                      cfg)
+    rec["predict"] = {"run_s": t, "pairs": 6, "batch_ms": batch_ms,
+                      "pairs_per_s": 1e3 / float(np.median(batch_ms[2:])),
+                      "launches": dict(_cuda.launches)}
+    check(launches_are(_cuda.launches, COMPAT_PER_PAIR, 6),
+          f"compat predict launches {rec['predict']['launches']}")
+    _cuda.reset_launches()
+    t, _, out = run_cli(common + ["--epochs", "1", "--iters", "2",
+                                  "--save_dir",
+                                  os.path.join(tmp, "compat_patch")],
+                        patch_main)
+    rec["patch"] = {"run_s": t, "steps": 4,
+                    "launches": dict(_cuda.launches)}
+    check(launches_are(_cuda.launches, COMPAT_PER_ITER, 4),
+          f"compat patch launches {rec['patch']['launches']}")
+    patch_change_ok(os.path.join(tmp, "compat_patch"),
+                    patch_dim_for(cfg.height, 0.2), 8 / 255 * 4)
+    log(json.dumps({"compat_clis": rec}))
+    return rec, tar
+
+
+def tiny_compat_card_vs_cpu(dev):
+    """(e) The tiny compat model (tiny arch, tiny geometry, fp32) on the
+    card and the CPU: the attack loss and its input gradients."""
+    import torch
+    from eval_driving_safety_tpu_torch.config import DSGNConfig, replace
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import (
+        DSGNCompat, DSGNCompatArch)
+    from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
+        dsgn_total_loss
+    cfg = replace(DSGNConfig.tiny(), dtype="float32")
+    arch = DSGNCompatArch.tiny()
+    cpu_model = random_compat_weights(cfg, arch, seed=3).requires_grad_(False)
+    il, ir, calib, boxes = tiny_frames()
+
+    def run(device):
+        model = cpu_model if device == "cpu" else DSGNCompat(
+            cfg, arch).requires_grad_(False)
+        if device != "cpu":
+            model.load_state_dict(cpu_model.state_dict())
+            model.to(device)
+        t = lambda a: torch.as_tensor(a).to(device)
+        mean, std = t(cfg.input.mean) * 255, t(cfg.input.std) * 255
+        xl, xr = (t(a).float().requires_grad_(True) for a in (il, ir))
+        out = model((xl - mean) / std, (xr - mean) / std,
+                    *(t(c) for c in calib))
+        depth = torch.full(xl.shape[:3], 20.0, device=device)
+        loss = dsgn_total_loss(out, depth, t(boxes), t([1]), cfg)[0]
+        return float(loss.detach()), [g.cpu() for g in
+                                      torch.autograd.grad(loss, (xl, xr))]
+    card_vs_cpu("tiny_compat_card_vs_cpu", run, COMPAT_PER_ITER, dev)
+
+
+def conv_device_ms(fn):
+    """Device time of one call of `fn` in library convolutions, by the
+    rank of their input: the kernels under `aten::convolution` (forward,
+    transposed ones included) and `aten::convolution_backward` whose
+    first input is 5-D (3D convs) or 4-D (2D convs). cuDNN names its 2D
+    and 3D kernels alike, so the kernel rows alone cannot tell them
+    apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"conv3d_ms": 0.0, "conv2d_ms": 0.0}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.key in ("aten::convolution", "aten::convolution_backward") \
+                and ev.input_shapes and len(ev.input_shapes[0]) in (4, 5):
+            key = "conv3d_ms" if len(ev.input_shapes[0]) == 5 else \
+                "conv2d_ms"
+            out[key] += ev.device_time_total / 1e3
+    return out
+
+
+def compat_steady_state(tar, dev, card, scale="paper"):
+    """(f) Steady-state attack iteration of the compat model at --scale
+    paper on the checkpoint of (d), and a profile of one: the port's
+    kernels' time, and the cuDNN 3D and 2D convs' (`conv_device_ms`)."""
+    import torch
+    from eval_driving_safety_tpu_torch.utils.torch_import import \
+        load_dsgn_checkpoint
+    cfg = scale_cfg(scale)
+    model, _ = load_dsgn_checkpoint(tar, cfg)
+    model = model.to(dev).requires_grad_(False).eval()
+    ss, attack = steady_attack(model, cfg, dev, n=3)
+    rows, total_us, port_us = profile_kernels(lambda: attack(1))
+    convs = conv_device_ms(lambda: attack(1))
+    rec = {"scale": scale, **ss, "profiled_kernel_ms": total_us / 1e3,
+           "device_busy_share": (total_us / 1e3) / ss["attack_iter_ms"],
+           "port_kernel_ms": port_us / 1e3, **convs,
+           "conv3d_share_of_kernel_time": convs["conv3d_ms"] * 1e3
+           / max(total_us, 1e-9),
+           "top_kernels_ms": [[k[:90], c, us / 1e3]
+                              for us, k, c in rows[:20]],
+           "card": card}
+    log(json.dumps({"compat_steady_state": rec}))
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1573,9 +2015,11 @@ def main():
     torch.cuda.empty_cache()
 
     # 4. the slice at paper scale; 6. predict over its attacked frames
-    # (in its directory), then the attack's steady state
-    fwd_shapes = {(k, s) for k, s, dt in per
-                  if dt == full.dtype and k in PREDICT_PER_PAIR}
+    # (in its directory), then the attack's steady state; 7. the patch
+    # attack over its frames, and the compat model on a checkpoint in the
+    # published layout
+    phase2 = {(k, s) for k, s, dt in per if dt == full.dtype}
+    fwd_shapes = {(k, s) for k, s in phase2 if k in PREDICT_PER_PAIR}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, shapes, widths, n_iters = the_slice(tmp, card, dev)
         p_launches = predict_cli(tmp, dev, fwd_shapes)
@@ -1583,13 +2027,21 @@ def main():
         decode_ms = decode_card_vs_cpu(tmp, full, dev)
         torch.cuda.empty_cache()
         predict_steady_state(tmp, dev, card, decode_ms)
+        torch.cuda.empty_cache()
+        patch_launches, patch_steps = patch_cli(tmp, dev, phase2)
+        tiny_patch_card_vs_cpu(dev)
+        patch_steady_state(tmp, dev, card)
+        torch.cuda.empty_cache()
+        compat, tar = compat_clis(tmp, dev)
+        tiny_compat_card_vs_cpu(dev)
+        torch.cuda.empty_cache()
+        compat_steady_state(tar, dev, card)
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
 
     # the slice launched each kernel at exactly the shapes phase 2 timed
     # (all in the model's dtype), the same number of times per iteration
     ran = {(k, s) for k, s, _ in shapes}
-    phase2 = {(k, s) for k, s, dt in per if dt == full.dtype}
     check(ran == phase2 and {dt for _, _, dt in shapes} == {full.dtype},
           f"slice launch shapes {sorted(shapes)} != phase-2 shapes "
           f"{sorted(phase2)}")
@@ -1665,6 +2117,15 @@ def main():
             # the predict path: the forward kernels only
             "predict_launches": p_launches[name],
             "launches_per_predict_pair": PREDICT_PER_PAIR.get(name, 0),
+            # phase 7: the patch step at --scale paper, and the compat
+            # model's attack iteration and predicted pair
+            "launches_per_patch_step": patch_launches[name] / patch_steps,
+            "launches_per_compat_attack_iter":
+                compat["attack"]["launches"][name] / compat["attack"][
+                    "iters"],
+            "launches_per_compat_predict_pair":
+                compat["predict"]["launches"][name] / compat["predict"][
+                    "pairs"],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),

@@ -1,22 +1,24 @@
-"""Circular adversarial patch: placement, compositing and npy persistence.
+"""Universal circular adversarial patch: placement, compositing, the
+training step and npy persistence.
 
-Counterpart of the eval-time half of eval_driving_safety_tpu/attack/patch.py
-(what `cli.predict_and_save --patch_npy` needs):
+Counterpart of eval_driving_safety_tpu/attack/patch.py:
 * circular patch, diameter = short-side * ratio (made odd);
 * random centre: row in [0.4*H, H-r-1], col in a band of the width, both
   bounds inclusive, drawn from a `torch.Generator`;
 * the right-image centre shifted by the stereo disparity offset
   -40*1.6 = -64 px;
 * composite img = (1-mask)*img + mask*patch, clipped at the image border;
+* update patch <- patch - clamp(0.5*alpha*g, -eps, eps), g the loss's
+  gradient with respect to the patch through both views' composites;
 * patches persist as npy in the reference's (1, 3, d, d) layout, so they
-  are interchangeable between the two packages.
-The patch's training step and its resized loading come with the DSGN
-patch attack (ROADMAP item 7).
+  are interchangeable between the two packages; a patch of another size
+  is resized as cv2's INTER_LINEAR resizes.
 """
 from __future__ import annotations
 
 import os
 from functools import lru_cache
+from typing import Callable
 
 import numpy as np
 import torch
@@ -97,6 +99,40 @@ def composite_patch_batch(imgs: torch.Tensor, patch: torch.Tensor,
                         for im, ctr in zip(imgs, centers)])
 
 
+def patch_update_step(loss_fn: Callable, patch: torch.Tensor, imgs_left,
+                      imgs_right, centers_left, centers_right, *,
+                      alpha: float, eps: float, pixel_min=None,
+                      pixel_max=None):
+    """One universal-patch descent step over a batch.
+
+    loss_fn(imL, imR) -> scalar (the detector's loss toward the targeted
+    labels, which the patch descends). The gradient reaches the patch
+    through both views' composites, summed over the batch. Returns
+    (new patch, detached; loss, detached)."""
+    p = patch.detach().requires_grad_(True)
+    loss = loss_fn(composite_patch_batch(imgs_left, p, centers_left),
+                   composite_patch_batch(imgs_right, p, centers_right))
+    (g,) = torch.autograd.grad(loss, p)
+    new_patch = patch.detach() - torch.clamp(0.5 * alpha * g, -eps, eps)
+    if pixel_min is not None:
+        new_patch = torch.clamp(new_patch, pixel_min, pixel_max)
+    return new_patch, loss.detach()
+
+
+def init_patch(short_side: int, ratio: float, save_dir: str = None):
+    """A fresh zero patch, written as `save_dir/epoch0/patch.npy`, or the
+    patch found there, resized to the diameter. Returns (dim, radius,
+    patch (d, d, 3) float32 CPU tensor)."""
+    dim = patch_dim_for(short_side, ratio)
+    if save_dir is not None:
+        p0 = os.path.join(save_dir, "epoch0", "patch.npy")
+        if os.path.exists(p0):
+            return dim, dim // 2, load_patch(p0, resize_to=dim)
+        os.makedirs(os.path.dirname(p0), exist_ok=True)
+        np.save(p0, np.zeros((1, 3, dim, dim), np.float32))
+    return dim, dim // 2, torch.zeros((dim, dim, 3), dtype=torch.float32)
+
+
 def save_patch(path: str, patch) -> None:
     """(d, d, 3) -> npy in the reference's (1, 3, d, d) layout."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -104,11 +140,31 @@ def save_patch(path: str, patch) -> None:
     np.save(path, arr.transpose(2, 0, 1)[None].astype(np.float32))
 
 
+def _inter_linear_matrix(n_src: int, n_dst: int) -> np.ndarray:
+    """(n_dst, n_src) float64 weights of cv2's INTER_LINEAR along one
+    axis: two taps at half-pixel centres, no antialiasing when it
+    shrinks, a source coordinate below 0 taking row 0 and one past the
+    end the last row."""
+    f = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
+    i0 = np.floor(f).astype(np.int64)
+    frac = f - i0
+    frac[i0 < 0] = 0.0
+    i0 = np.clip(i0, 0, n_src - 1)
+    i1 = np.minimum(i0 + 1, n_src - 1)
+    m = np.zeros((n_dst, n_src))
+    rows = np.arange(n_dst)
+    np.add.at(m, (rows, i0), 1.0 - frac)
+    np.add.at(m, (rows, i1), frac)
+    return m
+
+
 def load_patch(path: str, resize_to: int = None) -> torch.Tensor:
-    """npy (1, 3, d, d) -> (d, d, 3) float32 CPU tensor."""
+    """npy (1, 3, d, d) -> (d, d, 3) float32 CPU tensor, optionally
+    resized to `resize_to` pixels as cv2.resize(..., INTER_LINEAR) does
+    (the reference's ingest of a patch trained at another size)."""
     arr = np.load(path)[0].transpose(1, 2, 0)
     if resize_to is not None and arr.shape[0] != resize_to:
-        raise NotImplementedError(
-            f"{path}: resizing a {arr.shape[0]}-pixel patch to {resize_to} "
-            "comes with the DSGN patch attack (ROADMAP item 7)")
+        my = _inter_linear_matrix(arr.shape[0], resize_to)
+        mx = _inter_linear_matrix(arr.shape[1], resize_to)
+        arr = np.einsum("yi,ijc,xj->yxc", my, arr.astype(np.float64), mx)
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))

@@ -86,15 +86,29 @@ def make_dsgn_cfg(args):
 
 
 def make_dsgn_model(args, cfg, device):
-    """The port's DSGN, frozen for the attack: weights from `--ckpt`, or a
-    fresh seeded init. `--ckpt` is a `torch.save`d state dict of this
-    model (e.g. made by utils.from_flax) or an epoch directory of the
-    port's trainer (cli.train_detector), whose `params` it takes."""
+    """The DSGN the attack or predict CLIs run, frozen: weights from
+    `--ckpt`, or a fresh seeded init of the port's DSGN. A `--ckpt` ending
+    in `.tar` or `.pth` is a published DSGN checkpoint, read into the
+    upstream-topology compat model (models.dsgn_compat) with its
+    architecture taken from the state dict; any other `--ckpt` is a
+    `torch.save`d state dict of the port's DSGN (e.g. made by
+    utils.from_flax) or an epoch directory of its trainer
+    (cli.train_detector), whose `params` it takes."""
     import torch
 
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
     from eval_driving_safety_tpu_torch.utils.checkpoint import (
         is_checkpoint, restore_checkpoint)
+    if args.ckpt and args.ckpt.endswith((".tar", ".pth")):
+        from eval_driving_safety_tpu_torch.utils.torch_import import \
+            load_dsgn_checkpoint
+        model, imported = load_dsgn_checkpoint(args.ckpt, cfg)
+        log(f"imported published DSGN checkpoint {args.ckpt} into the "
+            f"upstream-compat model: arch {imported['arch']}, "
+            f"unmapped {len(imported['unmapped'])}"
+            + (f" {imported['unmapped'][:8]}" if imported["unmapped"]
+               else ""))
+        return model.to(device).requires_grad_(False).eval()
     model = DSGN(cfg)
     if args.ckpt:
         if os.path.isdir(args.ckpt):
@@ -108,8 +122,8 @@ def make_dsgn_model(args, cfg, device):
             raise SystemExit(
                 f"{args.ckpt} is neither a state dict of this package's "
                 "DSGN at this scale nor a checkpoint of its trainer at this "
-                "scale; the published DSGN checkpoint (ROADMAP item 8) and "
-                "the JAX trainer's orbax checkpoints (item 13) are not read")
+                "scale; the JAX trainer's orbax checkpoints (ROADMAP item "
+                "13) are not read")
         model.load_state_dict(sd)
         log(f"loaded DSGN weights from {args.ckpt}")
     else:

@@ -1,9 +1,10 @@
 """Configuration of the ported DSGN attack path.
 
-Field-for-field the DSGN, input and PGD configs of the JAX package, so a
-configuration means the same model in both. Two fields name the
-formulation of the volume ops, and their defaults differ from the JAX
-package's: there the defaults were chosen for the TPU's matrix unit, here
+Field-for-field the DSGN, input, PGD and patch configs of the JAX
+package, so a configuration means the same model in both. Two fields
+name the formulation of the volume ops, and their defaults differ from
+the JAX package's: there the defaults were chosen for the TPU's matrix
+unit, here
 "kernel" selects the hand-written CUDA kernels (ops.psv_warp,
 ops.depthconv). The alternatives are the JAX defaults' formulations in
 plain PyTorch library ops.
@@ -115,6 +116,29 @@ class PGDConfig:
     pixel_min: float = 0.0
     pixel_max: float = 1.0
     save_intermediate: bool = True
+
+
+@dataclass(frozen=True)
+class PatchConfig:
+    """Universal circular patch defaults of the DSGN patch attack: eps
+    8/255 per step, 2 steps per batch, 80 epochs, ratio 0.2, step
+    0.5 * 1e3 * g."""
+    ratio: float = 0.2
+    eps: float = 8.0 / 255.0
+    iters_per_batch: int = 2
+    epochs: int = 80
+    step_scale: float = 0.5 * 1e3
+    # placement: row in [0.4*H, H-r-1]; col in [0.2, 0.8]*W
+    row_band: Tuple[float, float] = (0.4, 1.0)
+    col_band: Tuple[float, float] = (0.2, 0.8)
+    # right-image centre shift: -40 * 1.6 px
+    disparity_shift: float = -64.0
+    # the targeted ghost car: its 2D box (x1, y1, x2, y2) and its 3D box
+    # (h, w, l, x, y, z, ry)
+    ghost_box2d: Tuple[float, float, float, float] = (569.33, 180.88,
+                                                      613.91, 225.02)
+    ghost_box3d: Tuple[float, ...] = (1.65, 1.67, 3.64, -0.78, 1.98, 29.11,
+                                      -1.60)
 
 
 # column bands of the eval-time patch placement (--patch_mode): fractions

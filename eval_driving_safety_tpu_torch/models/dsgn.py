@@ -116,20 +116,21 @@ class ConvBnRelu2p1D(nn.Module):
 
 
 class Score3D(nn.Module):
-    """1-output-channel 3x3x3 matching-score conv with bias: (B, D, H, W, C)
+    """1-output-channel 3x3x3 matching-score conv, with a bias unless
+    `bias=False` (the upstream checkpoint's `classif1`): (B, D, H, W, C)
     -> (B, D, H, W). The JAX model's "tap27" form computes the same
     function; here it is one library conv."""
 
-    def __init__(self, cin: int, dtype=torch.float32):
+    def __init__(self, cin: int, dtype=torch.float32, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(1, cin, 3, 3, 3))
-        self.bias = nn.Parameter(torch.zeros(1))
+        self.bias = nn.Parameter(torch.zeros(1)) if bias else None
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
-                     self.weight.to(self.dtype), self.bias.to(self.dtype),
-                     padding=1)
+                     self.weight.to(self.dtype), bias, padding=1)
         return y[:, 0]
 
 
