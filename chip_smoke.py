@@ -67,6 +67,15 @@ Phases (any failure ends the run with a non-zero exit):
      the tiny compat model on the card and on the CPU; (f) the compat
      attack iteration's steady state and profile, its cuDNN 3D convs'
      time (`compat_steady_state`).
+  8. the Stereo R-CNN attack (cli/pgd_attack.py --detector srcnn), which
+     launches none of the port's kernels: (a) the CLI at
+     StereoRCNNConfig() (ResNet-101 FPN, 600 x 1984, bf16, s2d) over
+     phase 4's frames, 3 iterations: the sweep at network scale, the
+     int32 host replay, a rerun with the same packed signs and bytes,
+     --transfer full with the same bytes; (b) the tiny model in fp32 on
+     the card and on the CPU; (c) the steady-state iteration, its profile
+     and ROIAlign's share (`srcnn_steady_state`); (d) one --fp32 run,
+     which must turn TF32 off.
 The line before the last is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
 step); the last line is {"ok": true, "device": {...}}.
@@ -1967,6 +1976,280 @@ def compat_steady_state(tar, dev, card, scale="paper"):
     return rec
 
 
+# --------------------------------------------------------------- phase 8
+
+SRCNN_IDS, SRCNN_ITERS = ["000001", "000002"], 3
+
+
+def png_dir_bytes(root):
+    """{relative path: bytes} of every file under `root`."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_signs():
+    """Record a digest of every packed sign trajectory the Stereo R-CNN
+    CLI's replay fetches (data.dataset.fetch_packed_signs)."""
+    import hashlib
+    from eval_driving_safety_tpu_torch.data import dataset as D
+    orig, seen = D.fetch_packed_signs, []
+
+    def fetch(pl, pr):
+        res = orig(pl, pr)
+        seen.append(hashlib.sha256(res[0].tobytes() + res[1].tobytes()
+                                   ).hexdigest())
+        return res
+    D.fetch_packed_signs = fetch
+    try:
+        yield seen
+    finally:
+        D.fetch_packed_signs = orig
+
+
+def srcnn_cli(tmp, dev):
+    """(a) The attack CLI with --detector srcnn at StereoRCNNConfig()
+    (ResNet-101 FPN, 600 x 1984, bf16, s2d stem) over phase 4's two
+    frames, 3 iterations, batch 1: the sweep's layout at network scale,
+    finite losses, the int32 host replay, no kernel of the port launched,
+    a second run with the same packed signs and PNG bytes, and --transfer
+    full writing the same PNG bytes."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.data.kitti import load_image_u8
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    common = ["--data_path", os.path.join(tmp, "kitti"), "--detector",
+              "srcnn", "--iter", str(SRCNN_ITERS), "--batch", "1",
+              "--device", str(dev)]
+    runs, signs = {}, {}
+    _cuda.reset_launches()
+    for name in ("signs", "signs_rerun", "full"):
+        extra = ["--transfer", "full"] if name == "full" else []
+        with recorded_signs() as seen:
+            t, losses, out = run_cli(common + extra + [
+                "--out_prefix", os.path.join(tmp, "srcnn_" + name,
+                                             "stereo_rcnn_pgd")])
+        runs[name] = {"run_s": t, "losses": losses}
+        signs[name] = sorted(seen)
+        check(len(losses) == len(SRCNN_IDS) and all(
+            len(l) == SRCNN_ITERS and all(map(math.isfinite, l))
+            for l in losses), f"srcnn {name} run: losses {losses}")
+        if name != "full":
+            check("host replay path: int32" in out,
+                  f"srcnn {name} run: the int32 replay was not taken")
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"the Stereo R-CNN attack launched port kernels: {launches}")
+    check(len(signs["signs"]) == len(SRCNN_IDS)
+          and signs["signs"] == signs["signs_rerun"],
+          "two srcnn runs fetched different packed signs")
+    files = {k: png_dir_bytes(os.path.join(tmp, "srcnn_" + k))
+             for k in runs}
+    want = {os.path.join(f"stereo_rcnn_pgd_iters_{k}", sub, fid + ".png")
+            for k in range(SRCNN_ITERS + 1)
+            for sub in ("image_2", "image_3") for fid in SRCNN_IDS}
+    check(set(files["signs"]) == want, f"srcnn sweep files "
+          f"{sorted(files['signs'])}")
+    for other in ("signs_rerun", "full"):
+        check(files[other] == files["signs"],
+              f"srcnn --transfer {other}: PNG bytes differ from the signs "
+              "run's")
+    for fid in SRCNN_IDS:
+        rel = os.path.join("stereo_rcnn_pgd_iters_{}", "image_2",
+                           fid + ".png")
+        root = os.path.join(tmp, "srcnn_signs")
+        clean = load_image_u8(os.path.join(root, rel.format(0)))
+        # 375 x 1242 frames resized to 600 rows: 1987 columns, cropped
+        check(clean.shape == (600, 1984, 3), f"srcnn frame {clean.shape}")
+        for k in range(1, SRCNN_ITERS + 1):
+            adv = load_image_u8(os.path.join(root, rel.format(k)))
+            diff = int(np.abs(adv.astype(int) - clean.astype(int)).max())
+            check(0 < diff <= 77, f"srcnn {fid} iter {k}: |adv - clean| "
+                  f"{diff} (eps 76.5 px)")
+    log(json.dumps({"srcnn_cli": {
+        "config": "StereoRCNNConfig() bf16 s2d", "frames": len(SRCNN_IDS),
+        "iters": SRCNN_ITERS, **runs, "launches": launches,
+        "signs_sha256": signs["signs"]}}))
+    return launches
+
+
+def tiny_srcnn_card_vs_cpu(dev):
+    """(b) The tiny Stereo R-CNN in fp32 (TF32 off) on the card and the
+    CPU: the same weights, inputs, gt and sampler draws; the total loss
+    and both input gradients, and no kernel of the port launched."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, make_gt_batch, total_attack_loss)
+    from eval_driving_safety_tpu_torch.data.kitti import (Calibration,
+                                                          KittiObject)
+    cfg = StereoRCNNConfig.tiny()
+    cpu_model = StereoRCNN(cfg).init_weights(seed=3).requires_grad_(False)
+    il, ir, _, _ = tiny_frames(1)
+    means = np.asarray(cfg.input.pixel_means_bgr, np.float32)
+    il = il[..., ::-1].astype(np.float32) - means
+    ir = ir[..., ::-1].astype(np.float32) - means
+    objs = [KittiObject.from_line(
+        "Car 0.00 0 -1.58 100.0 40.0 160.0 80.0 1.5 1.7 4.0 2.0 1.6 18.0 "
+        "0.4")]
+    gt = make_gt_batch([objs], [Calibration.default(180.0, 160.0, 48.0)],
+                       cfg)
+    draws = cpu_model.sample_draws(1, torch.Generator().manual_seed(7))
+    uncert = torch.tensor([0.3, -0.2, 0.1, 0.5, -0.4, 0.2])
+
+    def run(device):
+        model = cpu_model if device == "cpu" else StereoRCNN(
+            cfg).requires_grad_(False)
+        if device != "cpu":
+            model.load_state_dict(cpu_model.state_dict())
+            model.to(device)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+        a, b = t(il).requires_grad_(True), t(ir).requires_grad_(True)
+        out = model(a, b, gt={k: v.to(device) for k, v in gt.items()},
+                    draws=type(draws)(*(d.to(device) for d in draws)),
+                    mode="attack")
+        total = total_attack_loss(out.losses, uncert.to(device))
+        ga, gb = torch.autograd.grad(total, (a, b))
+        return float(total.detach()), [ga.cpu(), gb.cpu()]
+    card_vs_cpu("tiny_srcnn_card_vs_cpu", run, {}, dev)
+
+
+def roi_align_device_ms(fn):
+    """Device time of one call of `fn` in ROIAlign's forward and backward
+    (the kernels under their `record_function` ranges)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"roi_align_fwd": 0.0, "roi_align_bwd": 0.0}
+    for ev in prof.key_averages():
+        if ev.key in out and ev.device_type.name == "CPU":
+            out[ev.key] += ev.device_time_total / 1e3
+    return out
+
+
+def srcnn_steady_state(tmp, dev, card):
+    """(c) The steady-state Stereo R-CNN attack iteration at
+    StereoRCNNConfig() in bf16 on phase 4's first frame, as the CLI runs
+    it (v-space ingest, the six-term loss, input gradients, sign step):
+    its time, peak memory, a profile of one iteration (kernel time, busy
+    share, top kernels, ROIAlign's share) and the fixpoint NMS's host
+    syncs per iteration."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack.pgd import pgd_attack
+    from eval_driving_safety_tpu_torch.models.common import cast_matmul_params
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, srcnn_cleanv_device)
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, make_gt_batch, total_attack_loss)
+    from eval_driving_safety_tpu_torch.ops import nms
+    cfg = StereoRCNNConfig(dtype="bfloat16", stem_method="s2d")
+    model = StereoRCNN(cfg).init_weights(0).to(dev).requires_grad_(False)
+    cast_matmul_params(model)
+    ds = KittiStereoDataset(os.path.join(tmp, "kitti"))
+    b = prepare_srcnn_batch_u8([ds.get(0)], cfg.input)
+    gt = make_gt_batch(b["objects"], b["calibs"], cfg,
+                       image_scale=b["scales"], device=dev)
+    put = lambda a: torch.as_tensor(a).to(dev)
+    w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w", "wmask")}
+    clean_l = srcnn_cleanv_device(w, put(b["im_left_u8"]))
+    clean_r = srcnn_cleanv_device(w, put(b["im_right_u8"]))
+    K = float(b["den_h"][0]) * float(b["den_w"][0])
+    cb = put(b["c255"])[:, None, None, None]
+    means = put(np.asarray(cfg.input.pixel_means_bgr, np.float32))
+    draws = model.sample_draws(1, torch.Generator(device=dev).manual_seed(11))
+    uncert = torch.zeros(6, device=dev)
+
+    def loss_fn(a, c):
+        out = model(a * cb - means, c * cb - means, gt=gt, draws=draws,
+                    mode="attack")
+        return total_attack_loss(out.losses, uncert)
+
+    def attack(k):
+        return pgd_attack(loss_fn, clean_l, clean_r, num_iters=k, alpha=K,
+                          eps=76.5 * K, clip_min=0.0, clip_max=255.0 * K,
+                          collect="signs1")
+
+    n = 5
+    attack(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = nms.host_syncs["nms_fixpoint"]
+    t0 = time.perf_counter()
+    res = attack(n)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / n
+    syncs = (nms.host_syncs["nms_fixpoint"] - syncs) / n
+    check(bool(torch.isfinite(res.losses).all()), "srcnn steady losses")
+    peak = torch.cuda.max_memory_allocated()
+    rows, total_us, port_us = profile_kernels(lambda: attack(1))
+    roi = roi_align_device_ms(lambda: attack(1))
+    roi_ms = sum(roi.values())
+    rec = {"config": "StereoRCNNConfig() bf16 s2d", "batch": 1,
+           "attack_iter_ms": per_iter * 1e3,
+           "attack_iters_per_s": 1.0 / per_iter,
+           "peak_device_mem_gib": peak / 2 ** 30,
+           "profiled_kernel_ms": total_us / 1e3,
+           "kernel_launches_per_iter": sum(c for _, _, c in rows),
+           "device_busy_share": (total_us / 1e3) / (per_iter * 1e3),
+           "port_kernel_ms": port_us / 1e3,
+           "roi_align_fwd_ms": roi["roi_align_fwd"],
+           "roi_align_bwd_ms": roi["roi_align_bwd"],
+           "roi_align_share_of_kernel_time": roi_ms * 1e3
+           / max(total_us, 1e-9),
+           "nms_fixpoint_syncs_per_iter": syncs,
+           "top_kernels_ms": [[k[:90], c, us / 1e3]
+                              for us, k, c in rows[:16]],
+           "card": card}
+    log(json.dumps({"srcnn_steady_state": rec}))
+    check(port_us == 0, "the srcnn attack iteration ran a port kernel")
+    return rec
+
+
+def srcnn_fp32_cli(tmp, dev):
+    """(d) The srcnn CLI once with --fp32 (1 iteration, 1 frame): finite
+    losses, TF32 turned off by the CLI, no port kernel launched."""
+    import torch
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _cuda.reset_launches()
+    t, losses, _ = run_cli([
+        "--data_path", os.path.join(tmp, "kitti"), "--detector", "srcnn",
+        "--fp32", "--iter", "1", "--debug", "--debugnum", "1",
+        "--device", str(dev), "--out_prefix",
+        os.path.join(tmp, "srcnn_fp32", "stereo_rcnn_pgd")])
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "the --fp32 srcnn CLI left TF32 on")
+    check(len(losses) == 1 and all(map(math.isfinite, losses[0])),
+          f"srcnn --fp32 losses {losses}")
+    check(not any(_cuda.launches.values()),
+          f"the --fp32 srcnn CLI launched {dict(_cuda.launches)}")
+    log(json.dumps({"srcnn_fp32_cli": {"run_s": t, "losses": losses}}))
+
+
+def stereo_rcnn_phase(tmp, dev, card):
+    """Phase 8 over phase 4's frames in `tmp`; the launches of (a)."""
+    import torch
+    launches = srcnn_cli(tmp, dev)
+    tiny_srcnn_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    srcnn_steady_state(tmp, dev, card)
+    torch.cuda.empty_cache()
+    srcnn_fp32_cli(tmp, dev)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2036,6 +2319,9 @@ def main():
         tiny_compat_card_vs_cpu(dev)
         torch.cuda.empty_cache()
         compat_steady_state(tar, dev, card)
+        torch.cuda.empty_cache()
+        # 8. the Stereo R-CNN attack over the same frames
+        srcnn_launches = stereo_rcnn_phase(tmp, dev, card)
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
 
@@ -2126,6 +2412,9 @@ def main():
             "launches_per_compat_predict_pair":
                 compat["predict"]["launches"][name] / compat["predict"][
                     "pairs"],
+            # phase 8: the Stereo R-CNN attack launches none of them
+            "launches_per_srcnn_attack_iter": srcnn_launches[name] / (
+                len(SRCNN_IDS) * SRCNN_ITERS * 3),
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),

@@ -10,7 +10,8 @@ pair and the per-iteration gradient signs. `alpha * sign` is an exact f32
 product and every other update op (add, sub, clamp) one correctly rounded
 f32 op, so replaying the rule on the host from the packed signs
 reproduces every device iterate bit-exactly (`replay_pgd`,
-`replay_pgd_255`). The packed bytes are identical to the JAX package's
+`replay_pgd_255`, and `replay_pgd_ints` for the Stereo R-CNN's integer
+v-space). The packed bytes are identical to the JAX package's
 (`pack_signs`: four 2-bit codes s+1 per byte, LSB first; `pack_bits`:
 LSB-first 1-bit planes), so the on-disk contract and the replay carry over.
 """
@@ -27,6 +28,7 @@ _CODES2 = np.stack([(np.arange(256) >> (2 * i)) & 3 for i in range(4)],
                    axis=-1)                                    # (256, 4)
 _UNPACK_LUT = _CODES2.astype(np.float32) - 1.0
 _UNPACK_LUT_2X = 2 * (_CODES2.astype(np.int16) - 1)           # doubled signs
+_UNPACK_LUT_I8 = _CODES2.astype(np.int8) - 1                   # plain signs
 _B1_BITS = np.stack([(np.arange(256) >> i) & 1 for i in range(8)],
                     axis=-1).astype(np.uint16)                 # (256, 8)
 
@@ -210,3 +212,61 @@ def replay_pgd_255(clean_u8_left: np.ndarray, clean_u8_right: np.ndarray,
         v2r = np.clip(np.clip(v2r + unpack2x(pr[k]) - c2r, -e2, e2) + c2r,
                       0, 510)
         yield ((v2l >> 1).astype(np.uint8), (v2r >> 1).astype(np.uint8))
+
+
+def srcnn_replay_intable(a_pix, e_pix, K) -> bool:
+    """True when the doubled-integer replay (`replay_pgd_ints`) is exact
+    for a v-space attack with per-sample scale K = den_h * den_w (clean
+    values K * 255 * bgr01, exact integers).
+
+    Every f32 value the device makes must be exact. With alpha_v =
+    a_pix * K and eps_v = e_pix * K both integers, the iterates, deltas
+    and bounds lie on the integer grid, exact below 2^24; with
+    half-integers (only the doubled values integral) the grid halves and
+    the bound is 2^23. The largest value that must be exact is
+    max((255 + a_pix) * K, e_pix * K): the step x + alpha * sign before
+    the clamp, and the ball's radius. clean + eps may pass the bound, but
+    only where it also passes clip_max = 255 * K, whose clamp absorbs its
+    rounding. At K = 16 * 3974 = 63584 (KITTI frames at 600 rows), alpha
+    1 and eps 76.5 pass the 2^24 bound."""
+    K = np.asarray(K, np.float64)
+    a2 = np.asarray(2.0 * a_pix * K)
+    e2 = np.asarray(2.0 * e_pix * K)
+    a2r, e2r = np.rint(a2), np.rint(e2)
+    if not (np.all(a2 == a2r) and np.all(e2 == e2r)):
+        return False
+    even = bool(np.all(a2r % 2 == 0) and np.all(e2r % 2 == 0))
+    lim = 2.0 ** 24 if even else 2.0 ** 23
+    return float(np.maximum((255.0 + a_pix) * K, e_pix * K).max()) < lim
+
+
+def replay_pgd_ints(clean2_left: np.ndarray, clean2_right: np.ndarray,
+                    packed_left: np.ndarray, packed_right: np.ndarray, *,
+                    alpha2, eps2, clip_max2):
+    """Doubled-integer replay of a v-space attack where
+    `srcnn_replay_intable` holds: every device iterate lies on the
+    half-integer grid, so the trajectory is tracked as doubled int32
+    values. clean2 = 2 * clean (int32); alpha2, eps2, clip_max2 doubled,
+    scalars or (B,) arrays. Yields (v2_left, v2_right) int32 per
+    iteration; v2 / 2 is the device's f32 iterate exactly."""
+    def bshape(v):
+        a = np.asarray(v, np.int32)
+        return a.reshape(-1, 1, 1, 1) if a.ndim == 1 else a
+
+    a2, e2, m2 = bshape(alpha2), bshape(eps2), bshape(clip_max2)
+    c2l = np.asarray(clean2_left, np.int32)
+    c2r = np.asarray(clean2_right, np.int32)
+    v2l, v2r = c2l, c2r
+    ch = c2l.shape[-1]
+    pl, pr = np.asarray(packed_left), np.asarray(packed_right)
+
+    def unpack_sign(p):
+        out = _UNPACK_LUT_I8[p]
+        return out.reshape(*p.shape[:-1], p.shape[-1] * 4 // ch, ch)
+
+    for k in range(pl.shape[0]):
+        v2l = np.clip(np.clip(v2l + unpack_sign(pl[k]) * a2 - c2l, -e2, e2)
+                      + c2l, 0, m2)
+        v2r = np.clip(np.clip(v2r + unpack_sign(pr[k]) * a2 - c2r, -e2, e2)
+                      + c2r, 0, m2)
+        yield v2l, v2r

@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: dataset and IO flags, DSGN config and weights."""
+"""Shared CLI plumbing: dataset and IO flags, DSGN and Stereo R-CNN
+configs and weights."""
 from __future__ import annotations
 
 import argparse
@@ -63,7 +64,9 @@ def add_scale_args(p: argparse.ArgumentParser):
                    help="recompute the DSGN hourglass in the backward pass "
                         "(less device memory, slower)")
     p.add_argument("--stem", choices=("s2d", "conv7"), default=None,
-                   help="Stereo R-CNN stem (that detector is not ported yet)")
+                   help="Stereo R-CNN stem formulation (attack default "
+                        "s2d); both are the same 7x7/2 conv, which the "
+                        "port computes as one conv")
     p.add_argument("--tiny", action="store_true",
                    help="alias for --scale tiny")
 
@@ -130,6 +133,77 @@ def make_dsgn_model(args, cfg, device):
         model.init_weights(seed=0)
         log("WARNING: no --ckpt given; using randomly initialized weights")
     return model.to(device).requires_grad_(False).eval()
+
+
+def make_srcnn_cfg(args, default_bf16: bool = False,
+                   default_s2d: bool = False):
+    """StereoRCNNConfig from the flags: `--tiny` gives the tiny config;
+    the trunk is bf16 where `default_bf16` or `--bf16` asks, and `--fp32`
+    wins over both; `--stem` overrides the stem (s2d where `default_s2d`,
+    else the config's). `--scale` is a DSGN flag and is not read."""
+    import dataclasses
+
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    cfg = StereoRCNNConfig.tiny() if getattr(args, "tiny", False) \
+        else StereoRCNNConfig()
+    bf16 = not getattr(args, "fp32", False) and (
+        default_bf16 or getattr(args, "bf16", False))
+    stem = getattr(args, "stem", None) or \
+        ("s2d" if default_s2d else cfg.stem_method)
+    return dataclasses.replace(cfg, dtype="bfloat16" if bf16 else cfg.dtype,
+                               stem_method=stem)
+
+
+def make_srcnn_model(args, cfg, device):
+    """The Stereo R-CNN the attack runs, frozen, and its loss weights
+    `uncert` (6,): `--ckpt` is a checkpoint directory of the port
+    (utils.checkpoint; `params`, and `uncert` where it has one) or a
+    `torch.save`d state dict of the port's StereoRCNN (utils.from_flax
+    makes one from Flax weights); without it a seeded fresh init, and
+    `uncert` is 0. In bf16 the kernels are cast once
+    (`cast_matmul_params`)."""
+    import torch
+
+    from eval_driving_safety_tpu_torch.models.common import \
+        cast_matmul_params
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
+    from eval_driving_safety_tpu_torch.utils.checkpoint import (
+        is_checkpoint, restore_checkpoint)
+    model = StereoRCNN(cfg)
+    uncert = torch.zeros(6)
+    ckpt = args.ckpt
+    if ckpt and ckpt.endswith((".tar", ".pth")):
+        raise SystemExit(
+            f"{ckpt}: the published Stereo R-CNN checkpoint is not read by "
+            "this package yet (ROADMAP item 13); pass a state dict of its "
+            "StereoRCNN or a checkpoint directory")
+    if ckpt:
+        sd = None
+        if os.path.isdir(ckpt):
+            if is_checkpoint(ckpt):
+                tree = restore_checkpoint(ckpt)
+                sd = tree.get("params")
+                if tree.get("uncert") is not None:
+                    uncert = torch.as_tensor(tree["uncert"],
+                                             dtype=torch.float32)
+        else:
+            sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+        want = model.state_dict()
+        if not isinstance(sd, dict) or set(sd) != set(want) or any(
+                sd[k].shape != v.shape for k, v in want.items()):
+            raise SystemExit(
+                f"{ckpt} is not a state dict of this package's StereoRCNN "
+                "at this config, nor a checkpoint directory holding one")
+        model.load_state_dict(sd)
+        log(f"loaded Stereo R-CNN weights from {ckpt}"
+            + (f", uncert {uncert.tolist()}" if uncert.any() else ""))
+    else:
+        model.init_weights(seed=0)
+        log("WARNING: no --ckpt given; using randomly initialized weights")
+    model = model.to(device).requires_grad_(False).eval()
+    if cfg.dtype == "bfloat16":
+        cast_matmul_params(model)
+    return model, uncert.to(device)
 
 
 def use_deterministic_kernels(device) -> None:

@@ -158,7 +158,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.detector == "srcnn":
         raise SystemExit("--detector srcnn is not ported yet: the Stereo "
-                         "R-CNN patch attack is ROADMAP items 9 and 11 (use "
+                         "R-CNN patch attack is ROADMAP item 11 (use "
                          "eval_driving_safety_tpu for it)")
     run_dsgn(args)
 

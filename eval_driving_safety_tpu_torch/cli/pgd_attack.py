@@ -1,17 +1,25 @@
-"""PGD attack sweep on DSGN, on one CUDA card.
+"""PGD attack sweep on DSGN or Stereo R-CNN, on one CUDA card.
 
-Counterpart of `eval_driving_safety_tpu.cli.pgd_attack --detector dsgn`,
-with the same flags and the same output layout: every iteration's pair
-is saved as `{prefix}_iters_{k}/image_{2,3}/<id>.png` (k = 0 is clean).
-Frames go to the card as raw uint8; the attack runs in 255-space (clean
-= the exact pixels as f32, unit step, ball 76.5 = 0.3 * 255), so with
-`--transfer signs` only 1- or 2-bit packed gradient signs come back and
-the host replays every iterate bit-exactly in int16.
+Counterpart of `eval_driving_safety_tpu.cli.pgd_attack`, with the same
+flags and the same output layout: every iteration's pair is saved as
+`{prefix}_iters_{k}/image_{2,3}/<id>.png` (k = 0 is clean). Frames go to
+the card as raw uint8, and with `--transfer signs` only 1- or 2-bit
+packed gradient signs come back, from which the host replays every
+iterate bit-exactly.
+
+DSGN attacks in 255-space (clean = the exact pixels as f32, unit step,
+ball 76.5 = 0.3 * 255) and replays in int16. Stereo R-CNN attacks in
+v-space, the integer scale of the exact resize to 600 rows (clean = den_h
+* den_w * 255 * bgr01, data.exact_resize), with --alpha/--eps in BGR
+pixel units scaled per frame by den_h * den_w; it replays in int32 where
+attack.pgd.srcnn_replay_intable holds, else in f32.
 
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.pgd_attack --detector dsgn \\
       --data_path KITTI/object/training --split_file val.txt \\
       --iter 4 --batch 1 --scale paper
+  python -m eval_driving_safety_tpu_torch.cli.pgd_attack --detector srcnn \\
+      --data_path KITTI/object/training --split_file val.txt --iter 4
 """
 from __future__ import annotations
 
@@ -24,8 +32,8 @@ import torch
 
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, add_io_args, add_scale_args, log,
-    make_dataset, make_dsgn_cfg, make_dsgn_model, make_writer,
-    use_deterministic_kernels)
+    make_dataset, make_dsgn_cfg, make_dsgn_model, make_srcnn_cfg,
+    make_srcnn_model, make_writer, use_deterministic_kernels)
 
 # queued replay jobs: each pins a packed trajectory and a host batch
 _MAX_PENDING_REPLAYS = 3
@@ -38,28 +46,31 @@ def parse_args(argv=None):
     p.add_argument("--detector", choices=("dsgn", "srcnn"), default="dsgn")
     p.add_argument("--iter", type=int, default=4)
     p.add_argument("--alpha", type=float, default=None,
-                   help="step in [0,1] units (default 1/255)")
+                   help="step: dsgn in [0,1] units (default 1/255), srcnn "
+                        "in BGR pixel units (default 1.0)")
     p.add_argument("--eps", type=float, default=None,
-                   help="L-inf ball in [0,1] units (default 0.3)")
+                   help="L-inf ball: dsgn in [0,1] units (default 0.3), "
+                        "srcnn in BGR pixel units (default 255 * 0.3)")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--depth_dir", default=None,
                    help="per-frame depth .npy ground truth for the "
                         "disparity loss (optional)")
     p.add_argument("--out_prefix", default=None,
-                   help="default: dsgn_pgd")
+                   help="default: dsgn_pgd, stereo_rcnn_pgd")
     p.add_argument("--fp32", action="store_true",
-                   help="Stereo R-CNN trunk dtype (not ported yet)")
+                   help="srcnn: f32 trunk with TF32 off (the attack's "
+                        "default is a bf16 trunk)")
     p.add_argument("--bf16", action="store_true",
-                   help="Stereo R-CNN trunk dtype (not ported yet)")
+                   help="srcnn: bf16 trunk (already the attack's default)")
     p.add_argument("--resume", action="store_true",
                    help="skip frames whose last-iteration outputs exist")
     p.add_argument("--debug_nans", action="store_true",
                    help="run autograd in anomaly-detection mode")
     p.add_argument("--transfer", choices=("signs", "full"), default="signs",
                    help="'signs': fetch packed gradient signs and replay on "
-                        "the host (default); 'full': fetch truncated "
-                        "uint8 iterates")
+                        "the host (default); 'full': fetch the iterates "
+                        "quantized to uint8 on the card")
     p.add_argument("--objective", default="total",
                    choices=("total", "depth_divergence", "depth_shift"))
     p.add_argument("--depth_shift_m", type=float, default=10.0)
@@ -177,14 +188,148 @@ def run_dsgn(args):
             writer.close()
 
 
+# the samplers' draws: the same every iteration and every batch, as the
+# JAX CLI's one sampling key
+SRCNN_DRAW_SEED = 11
+
+
+def run_srcnn(args):
+    from eval_driving_safety_tpu_torch.attack.pgd import (
+        pgd_attack, replay_pgd, replay_pgd_ints, signs1_to_packed2,
+        srcnn_replay_intable)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        fetch_packed_signs, prepare_srcnn_batch_u8, quantize_v_rgb_u8,
+        save_sweep, srcnn_cleanv_device, srcnn_cleanv_q0_host)
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        make_gt_batch, total_attack_loss)
+    device = torch.device(args.device)
+    use_deterministic_kernels(device)
+    cfg = make_srcnn_cfg(args, default_bf16=True, default_s2d=True)
+    if cfg.dtype == "float32":
+        # f32 means f32: no TF32 in cuDNN convs or cuBLAS products
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model, uncert = make_srcnn_model(args, cfg, device)
+    a_pix = 1.0 if args.alpha is None else args.alpha
+    e_pix = 255.0 * 0.3 if args.eps is None else args.eps
+    prefix = args.out_prefix or "stereo_rcnn_pgd"
+    signs = args.transfer == "signs"
+    ds = make_dataset(args)
+    means = torch.tensor(cfg.input.pixel_means_bgr, dtype=torch.float32,
+                         device=device)
+
+    def attack(il_u8, ir_u8, weights, gt, draws, alpha_v, eps_v, max_v,
+               c255):
+        clean_l = srcnn_cleanv_device(weights, il_u8)
+        clean_r = srcnn_cleanv_device(weights, ir_u8)
+        cb = c255[:, None, None, None]
+
+        def loss_fn(il_v, ir_v):
+            out = model(il_v * cb - means, ir_v * cb - means, gt=gt,
+                        draws=draws, mode="attack")
+            return total_attack_loss(out.losses, uncert)
+
+        b1_ok = (clean_l.shape[-2] * clean_l.shape[-1]) % 8 == 0
+        res = pgd_attack(loss_fn, clean_l, clean_r, num_iters=args.iter,
+                         alpha=alpha_v, eps=eps_v, clip_min=0.0,
+                         clip_max=max_v,
+                         collect=(("signs1" if b1_ok else "signs")
+                                  if signs else True))
+        if signs:
+            return res.losses, res.trajectory
+        # quantized on the card by the host replay's operations
+        return res.losses, tuple(quantize_v_rgb_u8(t, c255)
+                                 for t in res.trajectory)
+
+    writer = make_writer(args)
+    replayer = cf.ThreadPoolExecutor(max_workers=2)
+    pending = []
+    logged = False
+
+    def replay_job(b, pl, pr, K, vkw, intable):
+        v2l, v2r, q0l, q0r = srcnn_cleanv_q0_host(b)
+        c255 = b["c255"]
+        pl, pr, bits = fetch_packed_signs(pl, pr)
+        if bits == 1:
+            pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
+        if intable:
+            half = np.float32(0.5)
+            frames = ((quantize_v_rgb_u8(a.astype(np.float32) * half, c255),
+                       quantize_v_rgb_u8(c.astype(np.float32) * half, c255))
+                      for a, c in replay_pgd_ints(
+                          v2l * 2, v2r * 2, pl, pr,
+                          alpha2=np.rint(2.0 * a_pix * K).astype(np.int64),
+                          eps2=np.rint(2.0 * e_pix * K).astype(np.int64),
+                          clip_max2=(510 * K).astype(np.int64)))
+        else:
+            frames = ((quantize_v_rgb_u8(a, c255), quantize_v_rgb_u8(c, c255))
+                      for a, c in replay_pgd(
+                          v2l.astype(np.float32), v2r.astype(np.float32),
+                          pl, pr, **vkw))
+        save_sweep(b, (q0l, q0r), frames, prefix, writer)
+
+    def prep(samples):
+        if args.resume and _already_done(prefix, args.iter,
+                                         [s.frame_id for s in samples]):
+            return None
+        b = prepare_srcnn_batch_u8(samples, cfg.input)
+        gt = make_gt_batch(b["objects"], b["calibs"], cfg,
+                           image_scale=b["scales"])
+        K = b["den_h"].astype(np.float64) * b["den_w"]
+        vkw = {k: (v * K).astype(np.float32).reshape(-1, 1, 1, 1)
+               for k, v in (("alpha", a_pix), ("eps", e_pix),
+                            ("clip_max", 255.0))}
+        return b, gt, K, dict(vkw, clip_min=0.0)
+
+    def put(x):
+        return torch.as_tensor(x).to(device, non_blocking=True)
+
+    try:
+        for prepared in ds.batches(args.batch, prefetch=args.prefetch,
+                                   io_workers=args.io_workers,
+                                   prepare=prep):
+            if prepared is None:                   # --resume skip
+                continue
+            b, gt, K, vkw = prepared
+            weights = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
+                                              "wmask")}
+            draws = model.sample_draws(len(b["frame_ids"]), torch.Generator(
+                device=device).manual_seed(SRCNN_DRAW_SEED))
+            losses, traj = attack(
+                put(b["im_left_u8"]), put(b["im_right_u8"]), weights,
+                {k: v.to(device) for k, v in gt.items()}, draws,
+                put(vkw["alpha"]), put(vkw["eps"]), put(vkw["clip_max"]),
+                put(b["c255"]))
+            if signs:
+                intable = srcnn_replay_intable(a_pix, e_pix, K)
+                if not logged:
+                    logged = True
+                    log("host replay path: " + (
+                        "int32 (bit-exact integer grid)" if intable else
+                        "f32 per iteration (alpha/eps off the integer grid "
+                        "or values past the f32-exact bound)"))
+                if len(pending) >= _MAX_PENDING_REPLAYS:
+                    pending.pop(0).result()
+                pending.append(replayer.submit(replay_job, b, traj[0],
+                                               traj[1], K, vkw, intable))
+            else:
+                _, _, q0l, q0r = srcnn_cleanv_q0_host(b)
+                save_sweep(b, (q0l, q0r), zip(traj[0], traj[1]), prefix,
+                           writer)
+            log(f"{b['frame_ids']}: losses "
+                f"{np.round(losses.cpu().numpy(), 3).tolist()}")
+    finally:
+        for f in pending:
+            f.result()
+        replayer.shutdown()
+        if writer is not None:
+            writer.close()
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.detector == "srcnn":
-        raise SystemExit("--detector srcnn is not ported yet: Stereo R-CNN "
-                         "is ROADMAP item 9 (use eval_driving_safety_tpu "
-                         "for it)")
     with torch.autograd.set_detect_anomaly(args.debug_nans):
-        run_dsgn(args)
+        (run_dsgn if args.detector == "dsgn" else run_srcnn)(args)
 
 
 if __name__ == "__main__":

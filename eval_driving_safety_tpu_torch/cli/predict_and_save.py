@@ -319,8 +319,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.detector == "srcnn":
         raise SystemExit("--detector srcnn is not ported yet: Stereo R-CNN "
-                         "is ROADMAP items 9-10 (use eval_driving_safety_tpu "
-                         "for it)")
+                         "predict is ROADMAP item 10 (use "
+                         "eval_driving_safety_tpu for it)")
     run_dsgn(args)
 
 

@@ -207,8 +207,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.detector == "srcnn":
         raise SystemExit("--detector srcnn is not ported yet: Stereo R-CNN "
-                         "is ROADMAP item 9 (use eval_driving_safety_tpu "
-                         "for it)")
+                         "training is ROADMAP item 13 (use "
+                         "eval_driving_safety_tpu for it)")
     run_dsgn(args)
 
 

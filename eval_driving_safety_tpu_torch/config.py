@@ -1,7 +1,7 @@
-"""Configuration of the ported DSGN attack path.
+"""Configuration of the ported DSGN and Stereo R-CNN paths.
 
-Field-for-field the DSGN, input, PGD and patch configs of the JAX
-package, so a configuration means the same model in both. Two fields
+Field-for-field the DSGN, Stereo R-CNN, input, PGD and patch configs of
+the JAX package, so a configuration means the same model in both. Two fields
 name the formulation of the volume ops, and their defaults differ from
 the JAX package's: there the defaults were chosen for the TPU's matrix
 unit, here
@@ -32,6 +32,83 @@ class DSGNInputConfig:
     width: int = 1248
     mean: Tuple[float, float, float] = IMAGENET_MEAN
     std: Tuple[float, float, float] = IMAGENET_STD
+
+
+# Stereo R-CNN pipeline: BGR pixels in [0,255] minus per-channel means
+SRCNN_PIXEL_MEANS_BGR: Tuple[float, float, float] = (102.9801, 115.9465,
+                                                     122.7717)
+
+
+@dataclass(frozen=True)
+class SRCNNInputConfig:
+    """Stereo R-CNN input convention: frames resized to 600 rows and
+    cropped or padded to a width that is a multiple of 32 (the FPN's
+    coarsest stride)."""
+    height: int = 600
+    width: int = 1984
+    pixel_means_bgr: Tuple[float, float, float] = SRCNN_PIXEL_MEANS_BGR
+
+
+@dataclass(frozen=True)
+class StereoRCNNConfig:
+    """Stereo R-CNN: siamese ResNet-101 + FPN, joint stereo RPN, and the
+    per-roi box / dimension-orientation / keypoint heads, with the loss
+    path always on. `tiny()` for tests."""
+    num_classes: int = 2                     # background + Car
+    backbone_blocks: Tuple[int, ...] = (3, 4, 23, 3)   # resnet101
+    backbone_width: int = 64
+    fpn_channels: int = 256
+    pooling_size: int = 7
+    kpts_grid: int = 28
+    kpts_convs: int = 4
+    # "bfloat16": the conv trunk and heads compute in bf16; decode,
+    # softmax and losses stay f32. The CLIs default to bf16, --fp32 keeps
+    # f32 throughout
+    dtype: str = "float32"
+    # "s2d" or "conv7": two formulations of the 7x7/2 stem conv in the JAX
+    # package (the space-to-depth one suits the TPU's matrix unit); they
+    # compute the same function, which the port computes as one 7x7/2
+    # conv for either value
+    stem_method: str = "conv7"
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    anchor_scales: Tuple[float, ...] = (32.0, 64.0, 128.0, 256.0, 512.0)
+    feat_strides: Tuple[int, ...] = (4, 8, 16, 32, 64)
+    # proposals
+    pre_nms_top_n: int = 2000
+    post_nms_top_n: int = 300
+    rpn_nms_thresh: float = 0.7
+    rpn_min_size: float = 8.0
+    # anchor-target sampling
+    rpn_batch_size: int = 256
+    rpn_fg_fraction: float = 0.5
+    rpn_positive_overlap: float = 0.7
+    rpn_negative_overlap: float = 0.3
+    # proposal-target sampling
+    roi_batch_size: int = 128
+    roi_fg_fraction: float = 0.25
+    roi_fg_thresh: float = 0.5
+    roi_bg_thresh_hi: float = 0.5
+    roi_bg_thresh_lo: float = 0.0
+    bbox_normalize_means: Tuple[float, float, float, float] = (0.0, 0.0,
+                                                               0.0, 0.0)
+    bbox_normalize_stds: Tuple[float, float, float, float] = (0.1, 0.1,
+                                                              0.2, 0.2)
+    max_gt_boxes: int = 30
+    # test time
+    score_thresh: float = 0.05
+    vis_thresh: float = 0.7
+    test_nms_thresh: float = 0.4
+    max_detections: int = 50
+    input: SRCNNInputConfig = field(default_factory=SRCNNInputConfig)
+
+    @staticmethod
+    def tiny() -> "StereoRCNNConfig":
+        """Small config for CPU tests: shallow backbone, few rois."""
+        return StereoRCNNConfig(
+            backbone_blocks=(1, 1, 1, 1), backbone_width=8, fpn_channels=16,
+            pre_nms_top_n=128, post_nms_top_n=32, rpn_batch_size=32,
+            roi_batch_size=16, max_gt_boxes=8, max_detections=8,
+            input=SRCNNInputConfig(height=96, width=320))
 
 
 @dataclass(frozen=True)

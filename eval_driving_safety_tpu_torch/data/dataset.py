@@ -1,12 +1,13 @@
-"""KITTI stereo frames, DSGN u8 batches, and the sweep's host side:
-fetching packed signs, replaying them, writing PNGs in the background.
+"""KITTI stereo frames, DSGN and Stereo R-CNN u8 batches, and the
+sweep's host side: fetching packed signs, replaying them, writing PNGs
+in the background.
 
-Counterpart of the DSGN attack parts of
-eval_driving_safety_tpu/data/dataset.py. Frames stay raw uint8 on the
-host; the device converts them (the clean pair is exactly the loaded
-pixels), and only packed gradient signs come back, from which the host
-replays every iterate bit-exactly (attack.pgd) and writes
-`{prefix}_iters_{k}/image_{2,3}/<id>.png`.
+Counterpart of the attack parts of eval_driving_safety_tpu/data/
+dataset.py. Frames stay raw uint8 on the host; the device converts them
+(DSGN: the clean pair is exactly the loaded pixels; Stereo R-CNN: the
+exact integer resize of data.exact_resize), and only packed gradient
+signs come back, from which the host replays every iterate bit-exactly
+(attack.pgd) and writes `{prefix}_iters_{k}/image_{2,3}/<id>.png`.
 """
 from __future__ import annotations
 
@@ -22,8 +23,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from eval_driving_safety_tpu_torch.config import DSGNInputConfig
+from eval_driving_safety_tpu_torch.config import (DSGNInputConfig,
+                                                   SRCNNInputConfig)
 from eval_driving_safety_tpu_torch.data import kitti as K
+from eval_driving_safety_tpu_torch.data.exact_resize import (
+    bilinear_axis_weights, resize_v2_device, resize_v2_host)
 
 
 @dataclass
@@ -136,6 +140,121 @@ def prepare_dsgn_batch_u8(samples: Sequence[KittiSample],
             "orig_hw": [s.orig_hw for s in samples],
             "calibs": [s.calib for s in samples],
             "objects": [s.objects for s in samples]}
+
+
+def prepare_srcnn_batch_u8(samples: Sequence[KittiSample],
+                           cfg: SRCNNInputConfig = SRCNNInputConfig()
+                           ) -> Dict:
+    """Raw uint8 BGR frames, padded to a per-batch size that is a multiple
+    of 8, with each frame's integer resize weights to the network's
+    height (scale = height / frame rows) and width (cropped to cfg.width):
+    `ih` (B, 3, H) and `iw` (B, 3, W) hold (i0, i1, r), `den_h`/`den_w`
+    the denominators, `wmask` the columns inside the frame. The attack
+    space is v = den_h * den_w * 255 * bgr01 (`srcnn_cleanv_device`);
+    `c255` = 1 / (den_h * den_w) maps it to BGR pixels and `c` =
+    c255 / 255 to [0, 1]."""
+    b = len(samples)
+    out_h, out_w = cfg.height, cfg.width
+    hp = -(-max(s.orig_hw[0] for s in samples) // 8) * 8
+    wp = -(-max(s.orig_hw[1] for s in samples) // 8) * 8
+    il = np.zeros((b, hp, wp, 3), np.uint8)
+    ir = np.zeros((b, hp, wp, 3), np.uint8)
+    ih = np.zeros((b, 3, out_h), np.int32)
+    iw = np.zeros((b, 3, out_w), np.int32)
+    den_h = np.zeros((b,), np.int32)
+    den_w = np.zeros((b,), np.int32)
+    wmask = np.zeros((b, out_w), np.int32)
+    c = np.zeros((b,), np.float32)
+    c255 = np.zeros((b,), np.float32)
+    scales = np.zeros((b,), np.float32)
+    net_hw = []
+    for i, s in enumerate(samples):
+        oh, ow = s.orig_hw
+        il[i, :oh, :ow] = s.im_left[..., ::-1]          # BGR byte order
+        ir[i, :oh, :ow] = s.im_right[..., ::-1]
+        scale = out_h / oh
+        full_w = int(round(ow * scale))
+        nw = min(full_w, out_w)
+        wh = bilinear_axis_weights(oh, out_h)
+        ww = bilinear_axis_weights(ow, full_w, crop=nw)
+        ih[i] = np.stack([wh.i0, wh.i1, wh.r])
+        iw[i, :, :nw] = np.stack([ww.i0, ww.i1, ww.r])
+        den_h[i], den_w[i] = wh.den, ww.den
+        wmask[i, :nw] = 1
+        c[i] = np.float64(1.0) / (255.0 * wh.den * ww.den)
+        c255[i] = np.float64(1.0) / (wh.den * ww.den)
+        scales[i] = scale
+        net_hw.append((out_h, nw))
+    return {"im_left_u8": il, "im_right_u8": ir, "ih": ih, "iw": iw,
+            "den_h": den_h, "den_w": den_w, "wmask": wmask, "c": c,
+            "c255": c255, "scales": scales,
+            "frame_ids": [s.frame_id for s in samples],
+            "orig_hw": [s.orig_hw for s in samples], "net_hw": net_hw,
+            "calibs": [s.calib for s in samples],
+            "objects": [s.objects for s in samples]}
+
+
+def srcnn_cleanv_device(weights: Dict, img_u8: torch.Tensor) -> torch.Tensor:
+    """The card's ingest into v-space: (B, Hp, Wp, 3) uint8 BGR and the
+    batch's weight tensors (`ih`, `iw`, `den_h`, `den_w`, `wmask` of
+    `prepare_srcnn_batch_u8`, on the card) -> (B, H, W, 3) float32
+    integers v = den_h * den_w * 255 * bgr01, zero past each frame's
+    width. Below 2^24 at KITTI scales, so exact in f32."""
+    ih, iw = weights["ih"], weights["iw"]
+    v2 = resize_v2_device(img_u8, ih[:, 0], ih[:, 1], ih[:, 2],
+                          weights["den_h"], iw[:, 0], iw[:, 1], iw[:, 2],
+                          weights["den_w"])
+    return (v2 * weights["wmask"][:, None, :, None]).to(torch.float32)
+
+
+def srcnn_cleanv_host(batch_u8: Dict) -> tuple:
+    """The host twin of `srcnn_cleanv_device`, as int32 (the replay's
+    seeds): (v_left, v_right), each (B, H, W, 3)."""
+    out_w = batch_u8["wmask"].shape[1]
+    out = []
+    for side in ("im_left_u8", "im_right_u8"):
+        frames = []
+        for i, (oh, ow) in enumerate(batch_u8["orig_hw"]):
+            out_h, nw = batch_u8["net_hw"][i]
+            wh = bilinear_axis_weights(oh, out_h)
+            ww = bilinear_axis_weights(ow, int(round(ow * (out_h / oh))),
+                                       crop=nw)
+            x = np.zeros((out_h, out_w, 3), np.int32)
+            x[:, :nw] = resize_v2_host(batch_u8[side][i, :oh, :ow], wh, ww)
+            frames.append(x)
+        out.append(np.stack(frames))
+    return out[0], out[1]
+
+
+def srcnn_cleanv_q0_host(batch_u8: Dict) -> tuple:
+    """`srcnn_cleanv_host` and the quantized clean frames (iteration 0):
+    (v_left, v_right, q_left, q_right)."""
+    vl, vr = srcnn_cleanv_host(batch_u8)
+    c255 = batch_u8["c255"]
+    return vl, vr, quantize_v_batch_u8(vl, c255), \
+        quantize_v_batch_u8(vr, c255)
+
+
+def quantize_v_rgb_u8(x_v, c255):
+    """v-space frames -> truncated RGB uint8 pixels: one f32 multiply by
+    c255 = 1 / (den_h * den_w) (flat (B,), broadcast over the batch axis
+    of (B, H, W, 3) frames or an (iters, B, H, W, 3) stack), a clamp to
+    [0, 255] and truncation, then BGR -> RGB. The same operations on an
+    array (numpy) and a tensor (on the card), so both transfer modes
+    write the same PNGs."""
+    shape = (1,) * (x_v.ndim - 4) + (-1, 1, 1, 1)
+    if isinstance(x_v, np.ndarray):
+        x = x_v.astype(np.float32) * \
+            np.asarray(c255, np.float32).reshape(shape)
+        return np.clip(x, 0, 255).astype(np.uint8)[..., ::-1]
+    c = torch.as_tensor(c255, dtype=torch.float32, device=x_v.device)
+    x = x_v.to(torch.float32) * c.reshape(shape)
+    return torch.clamp(x, 0, 255).to(torch.uint8).flip(-1)
+
+
+def quantize_v_batch_u8(v_i32: np.ndarray, c255) -> np.ndarray:
+    """(B, H, W, 3) int32 v-space frames -> truncated RGB uint8."""
+    return quantize_v_rgb_u8(v_i32.astype(np.float32), c255)
 
 
 def u8_to_01(x):
@@ -260,8 +379,6 @@ def save_sweep_from_signs(batch: Dict, clean_l: np.ndarray,
                                                           replay_pgd,
                                                           replay_pgd_255,
                                                           signs1_to_packed2)
-    save_attacked_images(batch, clean_l, clean_r, f"{prefix}_iters_0",
-                         writer=writer)
     pl, pr, bits = fetch_packed_signs(packed_l, packed_r)
     if bits == 1:
         pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
@@ -274,6 +391,15 @@ def save_sweep_from_signs(batch: Dict, clean_l: np.ndarray,
                       clean_l.astype(np.float32), clean_r.astype(np.float32),
                       pl, pr, alpha=alpha, eps=eps, clip_min=clip_min,
                       clip_max=clip_max))
+    save_sweep(batch, (clean_l, clean_r), frames, prefix, writer)
+
+
+def save_sweep(batch: Dict, clean_pair, frames, prefix: str,
+               writer) -> None:
+    """Save iteration 0 (`clean_pair`) and every pair of `frames` under
+    `{prefix}_iters_{k}/image_{2,3}/`."""
+    save_attacked_images(batch, clean_pair[0], clean_pair[1],
+                         f"{prefix}_iters_0", writer=writer)
     for k, (xl, xr) in enumerate(frames):
         save_attacked_images(batch, xl, xr, f"{prefix}_iters_{k + 1}",
                              writer=writer)
@@ -282,11 +408,13 @@ def save_sweep_from_signs(batch: Dict, clean_l: np.ndarray,
 def save_attacked_images(batch: Dict, adv_left, adv_right, out_dir: str,
                          writer: Optional[AsyncImageWriter] = None) -> None:
     """Write uint8 RGB pairs as `out_dir/image_{2,3}/<id>.png`, cropped to
-    each frame's size before padding."""
+    each frame's content: its size before padding (DSGN), or its resized
+    size at network scale (Stereo R-CNN batches, `net_hw`)."""
     if writer is None:
         adv_left, adv_right = fetch_np(adv_left), fetch_np(adv_right)
+    sizes = batch.get("net_hw", batch["orig_hw"])
     for i, fid in enumerate(batch["frame_ids"]):
-        hw = batch["orig_hw"][i]
+        hw = sizes[i]
         for sub, adv in (("image_2", adv_left), ("image_3", adv_right)):
             path = os.path.join(out_dir, sub, fid + ".png")
             if writer is not None:

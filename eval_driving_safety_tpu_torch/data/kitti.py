@@ -47,6 +47,9 @@ class Calibration:
     def baseline(self) -> float:
         return abs(float((self.P2[0, 3] - self.P3[0, 3]) / self.P2[0, 0]))
 
+    def disparity_from_depth(self, depth: np.ndarray) -> np.ndarray:
+        return self.f_u * self.baseline / np.maximum(depth, 1e-6)
+
     def project_rect_to_image(self, pts3d: np.ndarray) -> np.ndarray:
         """(N, 3) rectified-camera points -> (N, 2) left-image pixels."""
         hom = np.concatenate(

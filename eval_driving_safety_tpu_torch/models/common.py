@@ -1,4 +1,5 @@
-"""Shared building blocks: channel-last convs, frozen BatchNorm, resizes.
+"""Shared building blocks: channel-last convs, dense layers, frozen
+BatchNorm, max pooling, resizes.
 
 Every public function takes and returns channel-last tensors, as the JAX
 package's modules do. A conv permutes its NHWC input to an NCHW view,
@@ -72,6 +73,63 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
+class Dense(nn.Module):
+    """Flax's `nn.Dense` on the last axis; `weight` is (out, in), the
+    transposed Flax kernel."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class ConvTranspose(nn.Module):
+    """Flax's `nn.ConvTranspose(features, (k, k), strides=(k, k))` (SAME
+    padding, `transpose_kernel=False`) on NHWC: out[k*i + a] = x[i] *
+    kernel[k - 1 - a]. Flax does not flip its kernel where
+    `conv_transpose2d` does, so `weight` (in, out, k, k) holds the Flax
+    kernel flipped in both spatial axes (utils.from_flax flips it)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.kernel = kernel
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        y = F.conv_transpose2d(x, self.weight.to(self.dtype),
+                               self.bias.to(self.dtype), stride=self.kernel)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int) -> torch.Tensor:
+    """NHWC max pool with `padding` rows and columns of -inf on every side
+    (Flax's `nn.max_pool` with explicit padding ((p, p), (p, p)))."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def cast_matmul_params(model: nn.Module,
+                       dtype=torch.bfloat16) -> nn.Module:
+    """Cast every float32 parameter of rank >= 2 (conv and dense kernels)
+    to `dtype` once, in place; 1-D parameters (biases, BatchNorm
+    statistics) stay float32. The modules cast their weights to the
+    compute dtype at each use, so the computation is the same and the
+    casts are not repeated every iteration."""
+    for p in model.parameters():
+        if p.dim() >= 2 and p.dtype == torch.float32:
+            p.data = p.data.to(dtype)
+    return model
+
+
 class FrozenBatchNorm(nn.Module):
     """Inference BatchNorm: y = (x - mean) / sqrt(var + eps) * scale + bias,
     with the statistics as plain parameters."""
@@ -119,11 +177,14 @@ def resize_matrix(n_in: int, n_out: int, device: str) -> torch.Tensor:
     """(n_out, n_in) float32 weights of a 1D linear resize with half-pixel
     centers, antialiased when it shrinks: the weights F.interpolate uses,
     read off by resizing the identity on the CPU (along the last axis:
-    the CPU's antialiased resize of an (n, 1) image gives wrong values)."""
-    eye = torch.eye(n_in).reshape(n_in, 1, 1, n_in)
-    cols = F.interpolate(eye, size=(1, n_out), mode="bilinear",
-                         align_corners=False, antialias=n_out < n_in)
-    return cols[:, 0, 0, :].t().contiguous().to(device)
+    the CPU's antialiased resize of an (n, 1) image gives wrong values).
+    Made outside inference mode: the cached matrix also serves calls
+    whose gradient autograd records."""
+    with torch.inference_mode(False):
+        eye = torch.eye(n_in).reshape(n_in, 1, 1, n_in)
+        cols = F.interpolate(eye, size=(1, n_out), mode="bilinear",
+                             align_corners=False, antialias=n_out < n_in)
+        return cols[:, 0, 0, :].t().contiguous().to(device)
 
 
 def _resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
@@ -139,7 +200,8 @@ def _resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """NHWC linear resize matching `jax.image.resize(..., "linear")`, which
-    antialiases when it shrinks an axis. A shrinking resize runs in f32
+    antialiases when it shrinks an axis (and, upsampling, the JAX
+    package's `upsample_bilinear`). A shrinking resize runs in f32
     and returns x's dtype."""
     shrink = out_h < x.shape[1] or out_w < x.shape[2]
     y = x.float() if shrink else x

@@ -1,7 +1,6 @@
-"""Fixed-size rotated (BEV) NMS, batched over images.
+"""Fixed-size NMS, axis-aligned and rotated (BEV), batched over images.
 
-Counterpart of the rotated half of eval_driving_safety_tpu/ops/nms.py:
-every call returns `max_out` kept indices per image and a validity mask,
+Counterpart of eval_driving_safety_tpu/ops/nms.py: every call returns `max_out` kept indices per image and a validity mask,
 so no shape depends on the data. The parallel form iterates the greedy
 keep mask to its fixpoint on the device and reads one flag back every
 `CHECK_EVERY` steps to stop; `host_syncs` counts those reads.
@@ -10,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from eval_driving_safety_tpu_torch.ops.boxes import pairwise_iou
 from eval_driving_safety_tpu_torch.ops.rotated import rotated_pairwise_iou
 
 NEG_INF = -1e10
@@ -77,6 +77,37 @@ def top_k_stable(values, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _all_valid(scores):
+    return torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+
+
+def nms(boxes, scores, max_out: int, iou_thresh: float, valid=None):
+    """Axis-aligned greedy NMS over (B, N, 4) boxes and (B, N) scores ->
+    (keep_idx (B, max_out), keep_mask (B, max_out)), `max_out`
+    sequential steps."""
+    if valid is None:
+        valid = _all_valid(scores)
+    return _nms_from_iou(pairwise_iou(boxes, boxes), scores, valid, max_out,
+                         iou_thresh)
+
+
+def _nms_fixpoint_top(iou, scores, valid, max_out: int, iou_thresh: float):
+    """The `max_out` best boxes of `_keep_fixpoint`'s keep mask (ties:
+    lower index first) -> (keep_idx, keep_mask)."""
+    keep = _keep_fixpoint(iou, scores, valid, iou_thresh)
+    vals, idx = top_k_stable(torch.where(keep, scores, NEG_INF), max_out)
+    return idx, vals > NEG_INF / 2
+
+
+def nms_parallel(boxes, scores, max_out: int, iou_thresh: float, valid=None):
+    """Greedy-equivalent axis-aligned NMS as the fixpoint of
+    `_keep_fixpoint`. Same contract as `nms`."""
+    if valid is None:
+        valid = _all_valid(scores)
+    return _nms_fixpoint_top(pairwise_iou(boxes, boxes), scores, valid,
+                             max_out, iou_thresh)
+
+
 def rotated_nms(boxes5, scores, max_out: int, iou_thresh: float, valid=None,
                 parallel: bool = True):
     """Rotated (BEV) NMS over (B, N, 5) boxes (cx, cy, w, l, angle) and
@@ -85,12 +116,8 @@ def rotated_nms(boxes5, scores, max_out: int, iou_thresh: float, valid=None,
     The greedy-equivalent parallel fixpoint by default (`_keep_fixpoint`);
     `parallel=False` runs the sequential greedy steps."""
     if valid is None:
-        valid = torch.ones(scores.shape, dtype=torch.bool,
-                           device=scores.device)
+        valid = _all_valid(scores)
     iou = rotated_pairwise_iou(boxes5, boxes5)
     if not parallel:
         return _nms_from_iou(iou, scores, valid, max_out, iou_thresh)
-    keep = _keep_fixpoint(iou, scores, valid, iou_thresh)
-    masked = torch.where(keep, scores, NEG_INF)
-    vals, idx = top_k_stable(masked, max_out)
-    return idx, vals > NEG_INF / 2
+    return _nms_fixpoint_top(iou, scores, valid, max_out, iou_thresh)

@@ -1,14 +1,17 @@
-"""Flax -> PyTorch weight bridge for the ported DSGN.
+"""Flax -> PyTorch weight bridge for the ported DSGN and Stereo R-CNN.
 
 The port's modules carry the Flax model's auto-names, so the map is
 mechanical: the path of a leaf joined with "." names the tensor, a
 `kernel` leaf becomes `weight` in PyTorch's layout, and every other leaf
 (conv `bias`, FrozenBatchNorm `scale`/`bias`/`mean`/`var`) keeps its name.
 
-Kernel layouts by rank:
+DSGN kernel layouts, by rank:
   5 (3, 3, 3, C, 1) Score3D, DHWIO -> OIDHW
   4 (kh, kw, I, O) 2D conv, HWIO -> OIHW
   3 (3, C, F) (2+1)D depth kernel, kept as it is (the fused kernel's layout)
+Stereo R-CNN kernels, by the port module that takes them: a Dense's (I, O)
+-> (O, I); a ConvTranspose's (kh, kw, I, O) -> (I, O, kh, kw) flipped in
+both spatial axes (models.common.ConvTranspose); a conv's HWIO -> OIHW.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 _KERNEL_PERM = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (0, 1, 2)}
 
@@ -43,4 +47,33 @@ def dsgn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                     f"{'/'.join(path)}: kernel of rank {arr.ndim}")
             arr, name = arr.transpose(_KERNEL_PERM[arr.ndim]), "weight"
         sd[".".join([*mods, name])] = torch.tensor(arr)
+    return sd
+
+
+def stereo_rcnn_state_dict_from_flax(variables: Mapping,
+                                     model: nn.Module
+                                     ) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX StereoRCNN (with or without the
+    top-level "params" collection; its "constants" anchor table is
+    skipped: the port computes its own) -> a state dict for `model`, a
+    models.stereo_rcnn.StereoRCNN, each kernel laid out for the port
+    module at its path."""
+    from eval_driving_safety_tpu_torch.models.common import (ConvTranspose,
+                                                             Dense)
+    tree = variables["params"] if "params" in variables else variables
+    sd = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
+        *mods, name = path
+        if name == "kernel":
+            mod = model.get_submodule(".".join(mods))
+            if isinstance(mod, Dense):
+                arr = arr.T
+            elif isinstance(mod, ConvTranspose):
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+            else:
+                arr = arr.transpose(_KERNEL_PERM[4])
+            name = "weight"
+        sd[".".join([*mods, name])] = torch.tensor(
+            np.ascontiguousarray(arr))
     return sd

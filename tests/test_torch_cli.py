@@ -1,5 +1,6 @@
-"""The port's attack CLI end to end on CPU at the tiny scale, and its PNG
-IO (exact comparisons: pixels are integers)."""
+"""The port's attack CLI end to end on CPU at the tiny scale, both
+detectors, and its PNG IO (exact comparisons: pixels are integers)."""
+import argparse
 import os
 
 import numpy as np
@@ -53,9 +54,129 @@ def test_cli_tiny_writes_reference_layout_and_transfers_agree(tmp_path):
             assert (k == 0) == (diff.max() == 0)
 
 
-def test_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--data_path", str(tmp_path), "--detector", "srcnn"])
+def _sweep_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_cli_srcnn_tiny_layout_transfers_and_resume(tmp_path, capsys):
+    """--detector srcnn at the tiny config on CPU: the JAX CLI's layout
+    (frames saved at network scale, cropped to their resized width), the
+    clean frames equal to the JAX package's exact resize, signs and full
+    transfers byte-identical, every iterate within the ball, and
+    --resume skipping done frames."""
+    from eval_driving_safety_tpu.data import dataset as jds
+    ids = ["000001", "000002"]
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ids)
+    n = 2
+    common = ["--data_path", data, "--detector", "srcnn", "--tiny",
+              "--iter", str(n), "--device", "cpu"]
+    main(common + ["--out_prefix", str(tmp_path / "s" / "stereo_rcnn_pgd")])
+    assert "host replay path: int32" in capsys.readouterr().out
+    main(common + ["--out_prefix", str(tmp_path / "f" / "stereo_rcnn_pgd"),
+                   "--transfer", "full", "--sync_io"])
+    files = _sweep_files(tmp_path / "s")
+    assert files == _sweep_files(tmp_path / "f")
+    for rel in files:
+        assert (tmp_path / "s" / rel).read_bytes() == \
+            (tmp_path / "f" / rel).read_bytes(), rel
+
+    # the JAX package's sweep layout and clean frames for these frames
+    jset = jds.KittiStereoDataset(data)
+    jb = jds.prepare_srcnn_batch_u8([jset.get(i) for i in range(2)],
+                                    jds.SRCNNInputConfig(96, 320))
+    vl, vr = jds.srcnn_cleanv_host(jb)
+    q0 = (jds.quantize_v_batch_u8(vl, jb["c255"]),
+          jds.quantize_v_batch_u8(vr, jb["c255"]))
+    prefix = str(tmp_path / "j" / "stereo_rcnn_pgd")
+    jds.save_sweep(jb, q0, [q0] * n, prefix, lambda x: x, None)
+    assert _sweep_files(tmp_path / "j") == files
+    for i, fid in enumerate(ids):
+        for side, sub in enumerate(("image_2", "image_3")):
+            rel = os.path.join("stereo_rcnn_pgd_iters_0", sub, fid + ".png")
+            clean = K.load_image_u8(str(tmp_path / "s" / rel))
+            assert clean.shape == (96, 320, 3)
+            assert np.array_equal(clean, q0[side][i])
+            for k in range(1, n + 1):
+                adv = K.load_image_u8(str(
+                    tmp_path / "s" / rel.replace("iters_0", f"iters_{k}")))
+                diff = np.abs(adv.astype(int) - clean.astype(int)).max()
+                assert 0 < diff <= 77, (rel, k, diff)    # eps 76.5 px
+
+    last = tmp_path / "s" / files[-1]
+    stamp = last.stat().st_mtime_ns
+    capsys.readouterr()
+    main(common + ["--out_prefix", str(tmp_path / "s" / "stereo_rcnn_pgd"),
+                   "--resume"])
+    assert "losses" not in capsys.readouterr().out
+    assert last.stat().st_mtime_ns == stamp
+
+
+def test_cli_srcnn_off_grid_step_replays_in_f32(tmp_path, capsys):
+    """A step off the integer grid (--alpha 0.37 px) replays in f32, and
+    still writes the bytes --transfer full writes."""
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ["000001"])
+    common = ["--data_path", data, "--detector", "srcnn", "--tiny",
+              "--iter", "2", "--device", "cpu", "--alpha", "0.37"]
+    main(common + ["--out_prefix", str(tmp_path / "s" / "p")])
+    assert "host replay path: f32" in capsys.readouterr().out
+    main(common + ["--out_prefix", str(tmp_path / "f" / "p"), "--transfer",
+                   "full"])
+    files = _sweep_files(tmp_path / "s")
+    assert len(files) == 6 and files == _sweep_files(tmp_path / "f")
+    for rel in files:
+        assert (tmp_path / "s" / rel).read_bytes() == \
+            (tmp_path / "f" / rel).read_bytes(), rel
+
+
+def test_cli_srcnn_weights_uncert_and_fp32(tmp_path, capsys):
+    """--ckpt: a port checkpoint directory's params and uncert, a state
+    dict file, and the published .pth refused (ROADMAP item 13); --fp32
+    turns TF32 off."""
+    import torch
+
+    from eval_driving_safety_tpu_torch.cli.common import make_srcnn_model
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        save_checkpoint
+    cfg = StereoRCNNConfig.tiny()
+    sd = StereoRCNN(cfg).init_weights(seed=5).state_dict()
+    uncert = torch.arange(6, dtype=torch.float32) / 10
+    save_checkpoint(str(tmp_path / "ck"), {"params": sd, "uncert": uncert})
+    torch.save(sd, str(tmp_path / "sd.pt"))
+
+    def load(path):
+        return make_srcnn_model(argparse.Namespace(ckpt=path), cfg,
+                                torch.device("cpu"))
+    model, u = load(str(tmp_path / "ck"))
+    assert torch.equal(u, uncert)
+    assert torch.equal(model.state_dict()["rcnn.fc1.weight"],
+                       sd["rcnn.fc1.weight"])
+    model, u = load(str(tmp_path / "sd.pt"))
+    assert not u.any()
+    with pytest.raises(SystemExit, match="ROADMAP item 13"):
+        load(str(tmp_path / "published.pth"))
+
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ["000001"])
+    flags = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        main(["--data_path", data, "--detector", "srcnn", "--tiny", "--fp32",
+              "--iter", "1", "--device", "cpu", "--ckpt",
+              str(tmp_path / "ck"), "--out_prefix",
+              str(tmp_path / "o" / "p")])
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    out = capsys.readouterr().out
+    assert "uncert" in out and "losses" in out
 
 
 @pytest.mark.parametrize("level", [0, 9])

@@ -144,6 +144,29 @@ def test_resize_bilinear_matches_jax(src, dst):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("src,dst", [((19, 62), (38, 124)),
+                                     ((38, 124), (75, 248))])
+def test_resize_bilinear_fpn_upsamples_match_jax(src, dst):
+    """The Stereo R-CNN FPN's top-down upsamples at 600 x 1984. 38 -> 75
+    is no integer scale: each library computes its f32 weights its own
+    way (a last-bit difference), so within 2e-6 of the largest
+    magnitude."""
+    x = np.random.RandomState(3).randn(1, *src, 5).astype(np.float32)
+    want = _np(jax.image.resize(x, (1, *dst, 5), "linear"))
+    np.testing.assert_allclose(resize_bilinear(T(x), *dst).numpy(), want,
+                               rtol=0, atol=2e-6 * np.abs(want).max())
+
+
+def test_resize_matrix_made_in_inference_mode_serves_autograd():
+    """A resize first run under inference mode (predict) caches a matrix
+    that a later resize with a gradient (an attack) can use."""
+    with torch.inference_mode():
+        resize_bilinear(torch.rand(1, 5, 7, 2), 10, 17)
+    x = torch.rand(1, 5, 7, 2, requires_grad=True)
+    (g,) = torch.autograd.grad(resize_bilinear(x, 10, 17).sum(), x)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
 @pytest.mark.parametrize("src,dst", [((3, 6, 20), (6, 12, 40)),
                                      ((5, 7, 9), (9, 13, 17))])
 def test_resize_trilinear_matches_jax(src, dst):

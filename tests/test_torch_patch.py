@@ -318,7 +318,7 @@ def test_cli_trains_writes_the_reference_layout_and_resumes(tmp_path,
 
 
 def test_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="items 9 and 11"):
+    with pytest.raises(SystemExit, match="item 11"):
         C.main(["--data_path", str(tmp_path), "--detector", "srcnn"])
 
 

@@ -272,7 +272,7 @@ def test_cli_patch_modes_composite_the_patch(predict_data, mode):
 
 
 def test_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="items 9-10"):
+    with pytest.raises(SystemExit, match="item 10"):
         main(["--data_path", str(tmp_path), "--detector", "srcnn"])
 
 

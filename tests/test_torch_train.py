@@ -377,5 +377,5 @@ def test_attack_refuses_checkpoints_it_cannot_read(tmp_path):
 
 
 def test_train_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 9"):
+    with pytest.raises(SystemExit, match="ROADMAP item 13"):
         T.main(["--data_path", str(tmp_path), "--detector", "srcnn"])
