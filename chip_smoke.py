@@ -76,6 +76,25 @@ Phases (any failure ends the run with a non-zero exit):
      the card and on the CPU; (c) the steady-state iteration, its profile
      and ROIAlign's share (`srcnn_steady_state`); (d) one --fp32 run,
      which must turn TF32 off.
+  9. Stereo R-CNN predict (cli/predict_and_save.py --detector srcnn)
+     and its patch attack (cli/patch_attack.py --detector srcnn), at
+     StereoRCNNConfig() in bf16, batch 1, neither launching a port
+     kernel: (a) predict on planted weights (NMS keeps 50 boxes a frame)
+     over phase 8's attacked sweep and phase 4's clean frames, with AP,
+     input PNGs and panels, twice with byte-identical txts; (b) one fetch
+     of outputs decoded with the dense alignment on the card and on the
+     CPU (the same kept boxes; the same picks, or picks whose errors lie
+     within 1e-5 relative); (c) the steady-state predicted pair on those
+     weights and on the same heads over the RPN's own box deltas
+     (`srcnn_predict_steady_state`: pairs/s, busy share, peak memory,
+     the decode's share, host syncs per batch); (d) the patch CLI over
+     phase 4's frames, 2 epochs of 2 steps per frame, each epoch within
+     eps x steps and the circle, within the per-channel bounds, a rerun
+     from the same epoch0 writing the same bytes; (e) one tiny fp32
+     patch step on the card and on the CPU; (f) the steady-state patch
+     step (`srcnn_patch_steady_state`); (g) predict with (d)'s patch in
+     each --patch_mode, the card's composite equal to the CPU's; (h) one
+     --fp32 predict, which must turn TF32 off.
 The line before the last is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
 step); the last line is {"ok": true, "device": {...}}.
@@ -2250,6 +2269,649 @@ def stereo_rcnn_phase(tmp, dev, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+
+SRCNN_PATCH_EPOCHS, SRCNN_PATCH_ITERS, SRCNN_PATCH_EPS = 2, 2, 0.1
+
+
+def srcnn_cfg(tiny=False, dtype="bfloat16"):
+    """StereoRCNNConfig() (or the tiny config, for a rehearsal on the
+    CPU) in `dtype`."""
+    from eval_driving_safety_tpu_torch.config import (StereoRCNNConfig,
+                                                      replace)
+    return replace(StereoRCNNConfig.tiny() if tiny else StereoRCNNConfig(),
+                   dtype=dtype)
+
+
+def planted_srcnn_weights(cfg, path, anchors=True):
+    """Seeded weights whose heads are planted so that predict exports
+    boxes: the rcnn head's Car bias raised to +3 over a kernel scaled by
+    0.01 (every proposal scores as a car, so NMS keeps its 50), zero box
+    deltas but the right box shifted by -0.2 of its width (a plausible
+    disparity), a constant car from the dimension-orientation head, and,
+    with `anchors`, the RPN's box conv zeroed, so the proposals are the
+    anchors themselves and the 3D solve gets boxes it can succeed on.
+    Saved as a state dict for --ckpt."""
+    import torch
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
+    model = StereoRCNN(cfg).init_weights(0)
+    rc = model.rcnn
+    with torch.no_grad():
+        rc.cls_score.weight.mul_(0.01)
+        rc.cls_score.bias.copy_(torch.tensor([0.0, 3.0]))
+        rc.bbox_pred.weight.zero_()
+        rc.bbox_pred.bias.copy_(torch.tensor([0.0] * 10 + [-2.0, 0.0]))
+        rc.dim_orien_pred.weight.zero_()
+        rc.dim_orien_pred.bias.copy_(
+            torch.tensor([0.0] * 5 + [1.5, 1.7, 4.0, 0.2, 0.98]))
+        if anchors:
+            model.rpn.rpn_box.weight.zero_()
+    torch.save(model.state_dict(), path)
+
+
+def load_srcnn(cfg, ckpt, dev):
+    """The model the CLIs make from `ckpt` (None: a seeded init)."""
+    import argparse
+    from eval_driving_safety_tpu_torch.cli.common import make_srcnn_model
+    with contextlib.redirect_stdout(io.StringIO()):
+        return make_srcnn_model(argparse.Namespace(ckpt=ckpt), cfg, dev)
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name):
+    """Record (args, kwargs, result) of every call of `module.name`."""
+    orig, calls = getattr(module, name), []
+
+    def wrapper(*a, **k):
+        res = orig(*a, **k)
+        calls.append((a, k, res))
+        return res
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def srcnn_predict_inputs(tmp):
+    """Phase 9's predict inputs: phase 8's last attacked sweep (frames at
+    network scale) and phase 4's clean frames, as --image_{2,3}_dir
+    flags."""
+    adv = os.path.join(tmp, "srcnn_signs",
+                       f"stereo_rcnn_pgd_iters_{SRCNN_ITERS}")
+    return {"attacked": ["--image_2_dir", os.path.join(adv, "image_2"),
+                         "--image_3_dir", os.path.join(adv, "image_3")],
+            "clean": []}
+
+
+def txt_bytes(res):
+    out = {}
+    for fid in SRCNN_IDS:
+        with open(os.path.join(res, "data", fid + ".txt"), "rb") as f:
+            out[fid] = f.read()
+    return out
+
+
+def srcnn_predict_cli(tmp, dev, tiny=False):
+    """(a) The predict CLI with --detector srcnn at StereoRCNNConfig()
+    (bf16) on the planted weights over phase 8's attacked sweep and phase
+    4's clean frames, with --eval_ap, --save_input_dir and --plot: the
+    layout at network scale, 16-field KITTI lines, the AP table, a second
+    run writing the same txt bytes, and no port kernel launched."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.data.kitti import load_image_u8
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    cfg = srcnn_cfg(tiny)
+    ckpt = os.path.join(tmp, "srcnn_planted.pt")
+    planted_srcnn_weights(cfg, ckpt)
+    base = ["--data_path", os.path.join(tmp, "kitti"), "--detector",
+            "srcnn", "--device", str(dev), "--ckpt", ckpt] + (
+                ["--tiny"] if tiny else [])
+    _cuda.reset_launches()
+    rec, pairs = {}, 0
+    for name, dirs in srcnn_predict_inputs(tmp).items():
+        res = os.path.join(tmp, f"srcnn_pred_{name}")
+        inputs = os.path.join(res, "inputs")
+        t_a, _, out = run_cli(base + dirs + [
+            "--result_dir", res, "--eval_ap", "--plot", "--save_input_dir",
+            inputs], predict_main)
+        check("AP (Car, moderate, IoU 0.70)" in out,
+              f"srcnn predict {name}: {out[-400:]}")
+        predict_layout_ok(res, SRCNN_IDS, cfg, plot=True)
+        for fid in SRCNN_IDS:
+            for sub in ("image_2", "image_3"):
+                img = load_image_u8(os.path.join(inputs, sub, fid + ".png"))
+                check(img.shape == (cfg.input.height, cfg.input.width, 3),
+                      f"srcnn predict {name} input {sub}/{fid} {img.shape}")
+        t_b, _, _ = run_cli(base + dirs + ["--result_dir", res + "_rerun"],
+                            predict_main)
+        first, second = txt_bytes(res), txt_bytes(res + "_rerun")
+        check(first == second, f"srcnn predict {name}: two runs wrote "
+              "different txts")
+        with open(os.path.join(res, "metrics.jsonl")) as f:
+            ap = json.loads(f.read().splitlines()[-1])
+        rec[name] = {"run_s": t_a, "rerun_s": t_b,
+                     "detections": sum(v.count(b"\n")
+                                       for v in first.values()),
+                     "ap_moderate": {k: ap[k] for k in ("ap_bbox", "ap_bev",
+                                                        "ap_3d")}}
+        pairs += 2 * len(SRCNN_IDS)
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"the Stereo R-CNN predict CLI launched port kernels: {launches}")
+    check(all(r["detections"] > 0 for r in rec.values()),
+          f"srcnn predict exported no detection: {rec}")
+    log(json.dumps({"srcnn_predict_cli": {
+        "config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} "
+                  f"{cfg.dtype}, planted heads", "pairs": pairs, **rec,
+        "launches": launches}}))
+    return launches, pairs
+
+
+def srcnn_decode_card_vs_cpu(tmp, dev, tiny=False):
+    """(b) One fetch of the planted model's outputs on phase 8's first
+    attacked pair, decoded with the dense alignment on the card and on
+    the CPU: NMS keeps max_detections boxes, the same on both; the
+    alignment's success flags are equal and so are its picks, but where
+    the CPU's errors of the two picks differ by less than 1e-5 relative
+    (counted); the detections of equal picks are equal. Returns the
+    decode's time on the card, its fetch included."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, srcnn_clean01_device)
+    from eval_driving_safety_tpu_torch.inference import \
+        stereo_rcnn_predict as SP
+    from eval_driving_safety_tpu_torch.ops.dense_align import \
+        candidate_errors
+    cfg = srcnn_cfg(tiny)
+    model, _ = load_srcnn(cfg, os.path.join(tmp, "srcnn_planted.pt"), dev)
+    flags = srcnn_predict_inputs(tmp)["attacked"]
+    ds = KittiStereoDataset(os.path.join(tmp, "kitti"), image_2_dir=flags[1],
+                            image_3_dir=flags[3])
+    b = prepare_srcnn_batch_u8([ds.get(0)], cfg.input)
+    put = lambda a: torch.as_tensor(a).to(dev)
+    w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w", "wmask", "c")}
+    means = put(np.asarray(cfg.input.pixel_means_bgr, np.float32))
+    kw = dict(image_hw=b["orig_hw"][0], image_scale=float(b["scales"][0]))
+    with torch.inference_mode():
+        il = srcnn_clean01_device(w, put(b["im_left_u8"])) * 255.0 - means
+        ir = srcnn_clean01_device(w, put(b["im_right_u8"])) * 255.0 - means
+        out = model(il, ir, mode="infer")
+        host = SP.fetch_outputs(out)
+        runs = {}
+        for where, imgs in (("card", (il[0], ir[0])),
+                            ("cpu", (il[0].cpu(), ir[0].cpu()))):
+            with recorded_calls(SP, "nms") as kept, \
+                    recorded_calls(SP, "align_disparities") as aligned:
+                dets = SP.predict_image(host, *imgs, b["calibs"][0], cfg,
+                                        **kw)
+            runs[where] = (dets, kept, aligned)
+        (dk, kk, ak), (dc, kc, ac) = runs["card"], runs["cpu"]
+        kept = [int(r[2][1].sum()) for r in kk]
+        check(kept == [cfg.max_detections] and all(
+            torch.equal(a[2][0][a[2][1]], c[2][0][c[2][1]])
+            for a, c in zip(kk, kc)),
+            f"srcnn decode: NMS kept {kept} (card) and "
+            f"{[int(r[2][1].sum()) for r in kc]} (cpu)")
+        check(len(ak) == len(ac) == 1, f"srcnn decode: {len(ak)} card and "
+              f"{len(ac)} cpu alignments")
+        (ok_k, d_k), (ok_c, d_c) = ak[0][2], ac[0][2]
+        check(torch.equal(ok_k.cpu(), ok_c), "srcnn decode: alignment "
+              "success flags differ between card and cpu")
+        _, _, err_k = candidate_errors(*ak[0][0])
+        _, _, err_c = candidate_errors(*ac[0][0])
+        pick_k = torch.argmin(err_k, 1).cpu()
+        pick_c = torch.argmin(err_c, 1)
+        rows = torch.arange(len(pick_c))
+        differ = pick_k != pick_c
+        lo = err_c[rows, pick_c]
+        gap = (err_c[rows, pick_k] - lo).abs()
+        check(bool((gap[differ] <= 1e-5 * lo[differ].abs()).all()),
+              f"srcnn decode: the card picked candidates {pick_k[differ]} "
+              f"where the cpu picked {pick_c[differ]}, errors "
+              f"{gap[differ]} apart")
+        check(torch.equal(d_k.cpu()[~differ], d_c[~differ]),
+              "srcnn decode: equal picks gave other disparities")
+        if not differ.any():
+            check(len(dk) == len(dc) and all(
+                all(np.array_equal(np.asarray(x[f]), np.asarray(y[f]))
+                    for f in x) for x, y in zip(dk, dc)),
+                  "srcnn decode: card and cpu detections differ")
+        decode_ms = time_ms(lambda: SP.predict_image(
+            SP.fetch_outputs(out), il[0], ir[0], b["calibs"][0], cfg, **kw))
+    rec = {"kept_by_nms": kept[0], "solved": int(len(ok_c)),
+           "aligned": int(ok_c.sum()), "exported": len(dk),
+           "differing_picks": int(differ.sum()),
+           "disparity_max_abs_diff": float((d_k.cpu() - d_c).abs().max()),
+           "decode_ms": decode_ms}
+    log(json.dumps({"srcnn_decode_card_vs_cpu": rec}))
+    return decode_ms
+
+
+def srcnn_predict_steady_state(tmp, dev, card, tiny=False):
+    """(c) Steady-state Stereo R-CNN predict, batch 1, as the CLI runs it
+    (PNG decodes prefetched, uint8 upload, exact resize, forward, one
+    fetch, host decode, the alignment on the card, txt writes), for two
+    weight sets: the planted ones of (a), whose proposals are the
+    anchors, and the same heads over the RPN's own (random) box deltas.
+    For each: pairs/s from the CLI's per-batch times over 12 batches of
+    phase 4's frames after the first two; the same loop in this process
+    for the peak memory, the host syncs per batch, the decode's time
+    (fetch, NMS, solves, alignment, after the forward has finished) and
+    a profile of 4 pairs (kernel time per pair over the pair's time: the
+    busy share)."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, srcnn_clean01_device)
+    from eval_driving_safety_tpu_torch.data.kitti import write_detections
+    from eval_driving_safety_tpu_torch.inference import \
+        stereo_rcnn_predict as SP
+    from eval_driving_safety_tpu_torch.ops import nms
+    cfg = srcnn_cfg(tiny)
+    data = os.path.join(tmp, "kitti")
+    split = os.path.join(tmp, "srcnn_steady.txt")
+    with open(split, "w") as f:
+        f.write("000001\n000002\n" * 7)
+    ds = KittiStereoDataset(data, split_file=split)       # 14 pairs
+    means = torch.tensor(cfg.input.pixel_means_bgr, device=dev)
+    put = lambda a: torch.as_tensor(a).to(dev, non_blocking=True)
+    rpn_ckpt = os.path.join(tmp, "srcnn_planted_rpn.pt")
+    planted_srcnn_weights(cfg, rpn_ckpt, anchors=False)
+    rec = {"config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} "
+                     f"{cfg.dtype}", "batch": 1, "card": card}
+    for name, ckpt in (("proposals_are_anchors",
+                        os.path.join(tmp, "srcnn_planted.pt")),
+                       ("rpn_deltas", rpn_ckpt)):
+        _, _, out = run_cli(["--data_path", data, "--split_file", split,
+                             "--debug", "--debugnum", "12", "--detector",
+                             "srcnn", "--device", str(dev), "--ckpt", ckpt,
+                             "--result_dir", os.path.join(
+                                 tmp, f"srcnn_steady_{name}")]
+                            + (["--tiny"] if tiny else []), predict_main)
+        batch_ms = [float(m) for m in re.findall(
+            r"exported 1 frames \(([\d.]+) ms\)", out)]
+        check(len(batch_ms) == 12, f"srcnn steady-state batches {batch_ms}")
+        pair_ms_cli = float(np.median(batch_ms[2:]))
+        model, _ = load_srcnn(cfg, ckpt, dev)
+        res = os.path.join(tmp, f"srcnn_inproc_{name}")
+        decode_s, exported = [], []
+
+        def pairs():
+            for b in ds.batches(1, prepare=lambda s: prepare_srcnn_batch_u8(
+                    s, cfg.input)):
+                w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
+                                            "wmask", "c")}
+                il = srcnn_clean01_device(w, put(b["im_left_u8"])) * 255.0 \
+                    - means
+                ir = srcnn_clean01_device(w, put(b["im_right_u8"])) \
+                    * 255.0 - means
+                out = model(il, ir, mode="infer")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets = SP.predict_image(
+                    SP.fetch_outputs(out), il[0], ir[0], b["calibs"][0], cfg,
+                    image_hw=b["orig_hw"][0],
+                    image_scale=float(b["scales"][0]))
+                decode_s.append(time.perf_counter() - t0)
+                exported.append(len(dets))
+                write_detections(os.path.join(res, b["frame_ids"][0]
+                                              + ".txt"), dets)
+                yield
+
+        with torch.inference_mode(), \
+                recorded_calls(SP, "align_disparities") as aligned:
+            it = pairs()
+            for _ in range(2):
+                next(it)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            syncs, n_align = nms.host_syncs["nms_fixpoint"], len(aligned)
+            del decode_s[:]
+            n = 8
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(it)
+            torch.cuda.synchronize()
+            pair_ms = (time.perf_counter() - t0) / n * 1e3
+            syncs = (nms.host_syncs["nms_fixpoint"] - syncs) / n
+            n_align = (len(aligned) - n_align) / n
+            decode_ms = float(np.median(decode_s)) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            rows, total_us, port_us = profile_kernels(lambda: list(it))
+        kernel_ms = total_us / 1e3 / 4
+        rec[name] = {
+            "pairs_per_s": 1e3 / pair_ms_cli, "pair_ms_cli": pair_ms_cli,
+            "cli_batch_ms": batch_ms, "pair_ms_in_process": pair_ms,
+            "exported_per_pair": float(np.mean(exported)),
+            "peak_device_mem_gib": peak / 2 ** 30,
+            "kernel_ms_per_pair": kernel_ms,
+            "kernel_launches_per_pair": sum(c for _, _, c in rows) / 4,
+            "device_busy_share": kernel_ms / pair_ms,
+            "port_kernel_ms_per_pair": port_us / 1e3 / 4,
+            "decode_ms": decode_ms, "decode_share": decode_ms / pair_ms,
+            "host_syncs_per_batch": {"nms_fixpoint_checks": syncs,
+                                     "output_fetch": 1,
+                                     "alignment_fetches": n_align},
+            "top_kernels_ms_in_4_pairs": [[k[:70], c, us / 1e3]
+                                          for us, k, c in rows[:12]]}
+        check(port_us == 0, "the srcnn predict ran a port kernel")
+        del model
+        torch.cuda.empty_cache()
+    log(json.dumps({"srcnn_predict_steady_state": rec}))
+    return rec
+
+
+def srcnn_patch_cli(tmp, dev, tiny=False):
+    """(d) The patch CLI with --detector srcnn at StereoRCNNConfig()
+    (bf16, s2d) over phase 4's two frames, 2 epochs of 2 steps per frame:
+    the (1, 3, 61, 61) files, each epoch's change within eps x steps and
+    none outside the circle, every patch within the per-channel pixel
+    bounds, no port kernel launched, and a second run from the same
+    epoch0 writing the same bytes. Returns the launches, the steps and
+    the last patch's path."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.attack.patch import patch_dim_for
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        main as patch_main
+    from eval_driving_safety_tpu_torch.data.dataset import srcnn_clip_bounds
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    import shutil
+    cfg = srcnn_cfg(tiny)
+    frames = len(SRCNN_IDS)
+    epochs, iters, eps = SRCNN_PATCH_EPOCHS, SRCNN_PATCH_ITERS, \
+        SRCNN_PATCH_EPS
+    common = ["--data_path", os.path.join(tmp, "kitti"), "--detector",
+              "srcnn", "--device", str(dev), "--epochs", str(epochs),
+              "--iters", str(iters)] + (["--tiny"] if tiny else [])
+    a = os.path.join(tmp, "srcnn_patch_a")
+    b = os.path.join(tmp, "srcnn_patch_b")
+    _cuda.reset_launches()
+    t_a, _, out = run_cli(common + ["--save_dir", a], patch_main)
+    launches = dict(_cuda.launches)
+    steps = epochs * frames * iters
+    check(not any(launches.values()),
+          f"the Stereo R-CNN patch CLI launched port kernels: {launches}")
+    losses = [float(v) for v in re.findall(r"avg loss (\S+)", out)]
+    check(len(losses) == epochs and all(map(math.isfinite, losses)),
+          f"srcnn patch CLI losses {losses}")
+    dim = patch_dim_for(cfg.input.height, 0.1)
+    check(f"patch dim {dim} (radius {dim // 2})" in out, "srcnn patch dim")
+    _, changes = patch_change_ok(a, dim, eps * iters * frames)
+    lo, hi = srcnn_clip_bounds(cfg.input)
+    for e in range(1, epochs + 1):
+        p = np.load(os.path.join(a, f"epoch{e}", "patch.npy"))[0]
+        check(all(lo[c] <= p[c].min() and p[c].max() <= hi[c]
+                  for c in range(3)),
+              f"srcnn patch epoch{e} outside the per-channel bounds")
+    shutil.copytree(os.path.join(a, "epoch0"), os.path.join(b, "epoch0"))
+    t_b, _, _ = run_cli(common + ["--save_dir", b], patch_main)
+    for e in range(1, epochs + 1):
+        rel = os.path.join(f"epoch{e}", "patch.npy")
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            check(fa.read() == fb.read(), f"srcnn {rel}: two patch runs "
+                  "differ")
+    log(json.dumps({"srcnn_patch_cli": {
+        "config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} "
+                  f"{cfg.dtype} s2d", "frames": frames, "epochs": epochs,
+        "iters": iters, "steps": steps, "run_s": t_a, "rerun_s": t_b,
+        "epoch_losses": losses, "epoch_max_change": changes,
+        "launches": launches, "patch_dim": dim}}))
+    return launches, steps, os.path.join(a, f"epoch{epochs}", "patch.npy")
+
+
+def tiny_srcnn_patch_card_vs_cpu(dev):
+    """(e) One patch step of the tiny fp32 Stereo R-CNN (TF32 off) on the
+    card and the CPU, the same weights, frames, centres, targets, sampler
+    draws and uncert: loss, patch gradient, and the new patch within the
+    per-channel bounds."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        composite_patch_batch, patch_update_step)
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        _srcnn_patch_targets
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    from eval_driving_safety_tpu_torch.data.dataset import srcnn_clip_bounds
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, total_attack_loss)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = StereoRCNNConfig.tiny()
+    cpu_model = StereoRCNN(cfg).init_weights(seed=3).requires_grad_(False)
+    il, ir, _, _ = tiny_frames(2)
+    means = np.asarray(cfg.input.pixel_means_bgr, np.float32)
+    il = il[..., ::-1].astype(np.float32) - means
+    ir = ir[..., ::-1].astype(np.float32) - means
+    lo, hi = srcnn_clip_bounds(cfg.input)
+    d, radius = 9, 4
+    rng = np.random.RandomState(4)
+    patch = (lo + (hi - lo) * rng.rand(d, d, 3)).astype(np.float32)
+    cl = torch.tensor([[60, 150], [70, 40]])
+    cr = cl + torch.tensor([0, -64])
+    gt = _srcnn_patch_targets(2, cfg, radius, cl, cr)
+    draws = cpu_model.sample_draws(2, torch.Generator().manual_seed(17))
+    uncert = torch.tensor([0.3, -0.2, 0.1, 0.5, -0.4, 0.2])
+
+    def run(device):
+        model = cpu_model if device == "cpu" else StereoRCNN(
+            cfg).requires_grad_(False)
+        if device != "cpu":
+            model.load_state_dict(cpu_model.state_dict())
+            model.to(device)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+        left, right = t(il), t(ir)
+        gt_d = {k: v.to(device) for k, v in gt.items()}
+        draws_d = type(draws)(*(x.to(device) for x in draws))
+
+        def loss_fn(a, b):
+            out = model(a, b, gt=gt_d, draws=draws_d, mode="attack")
+            return total_attack_loss(out.losses, uncert.to(device))
+        p = t(patch).clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss_fn(
+            composite_patch_batch(left, p, cl),
+            composite_patch_batch(right, p, cr)), p)
+        new, loss = patch_update_step(loss_fn, t(patch), left, right, cl, cr,
+                                      alpha=1e3, eps=0.1, pixel_min=t(lo),
+                                      pixel_max=t(hi))
+        new = new.cpu().numpy()
+        check(np.isfinite(new).all() and (new >= lo).all()
+              and (new <= hi).all()
+              and np.abs(new - patch).max() <= 0.1 + 1e-5,
+              f"{device}: the srcnn patch step left its bounds")
+        return float(loss), [g.cpu()]
+    card_vs_cpu("tiny_srcnn_patch_step_card_vs_cpu", run, {}, dev)
+
+
+def srcnn_patch_steady_state(tmp, dev, card, tiny=False):
+    """(f) The steady-state Stereo R-CNN patch step at StereoRCNNConfig()
+    (bf16, s2d), batch 1, as the CLI runs it on phase 4's first frame
+    (card ingest, composite, the six-term loss toward the patch's box,
+    patch gradient, per-channel clamp): steps/s, peak memory, a profile
+    of one step (kernel time, busy share, top kernels)."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        patch_dim_for, patch_update_step)
+    from eval_driving_safety_tpu_torch.cli.patch_attack import (
+        SRCNN_PATCH_DRAW_SEED, _srcnn_patch_targets)
+    from eval_driving_safety_tpu_torch.config import replace
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, srcnn_clean01_device,
+        srcnn_clip_bounds)
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import \
+        total_attack_loss
+    cfg = replace(srcnn_cfg(tiny), stem_method="s2d")
+    model, uncert = load_srcnn(cfg, None, dev)
+    b = prepare_srcnn_batch_u8([KittiStereoDataset(os.path.join(
+        tmp, "kitti")).get(0)], cfg.input)
+    put = lambda a: torch.as_tensor(a).to(dev)
+    w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w", "wmask", "c")}
+    means = put(np.asarray(cfg.input.pixel_means_bgr, np.float32))
+    lo, hi = (put(v) for v in srcnn_clip_bounds(cfg.input))
+    h, wd = cfg.input.height, cfg.input.width
+    d = patch_dim_for(h, 0.1)
+    cl = torch.tensor([[3 * h // 4, wd // 2]])
+    cr = cl + torch.tensor([0, -64])
+    gt = _srcnn_patch_targets(1, cfg, d // 2, cl, cr, dev)
+    draws = model.sample_draws(1, torch.Generator(device=dev).manual_seed(
+        SRCNN_PATCH_DRAW_SEED))
+
+    def loss_fn(a, c):
+        out = model(a, c, gt=gt, draws=draws, mode="attack")
+        return total_attack_loss(out.losses, uncert)
+
+    patch = torch.zeros(d, d, 3, device=dev)
+
+    def steps(n):
+        nonlocal patch
+        il = srcnn_clean01_device(w, put(b["im_left_u8"])) * 255.0 - means
+        ir = srcnn_clean01_device(w, put(b["im_right_u8"])) * 255.0 - means
+        for _ in range(n):
+            patch, loss = patch_update_step(loss_fn, patch, il, ir, cl, cr,
+                                            alpha=1e3, eps=0.1,
+                                            pixel_min=lo, pixel_max=hi)
+        return loss
+
+    steps(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    loss = steps(n)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    check(math.isfinite(float(loss)), "steady-state srcnn patch loss")
+    peak = torch.cuda.max_memory_allocated()
+    rows, total_us, port_us = profile_kernels(lambda: steps(1))
+    rec = {"config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} "
+                     f"{cfg.dtype} s2d", "batch": 1,
+           "patch_step_ms": per_step * 1e3,
+           "patch_steps_per_s": 1.0 / per_step,
+           "peak_device_mem_gib": peak / 2 ** 30,
+           "step_kernel_ms": total_us / 1e3,
+           "kernel_launches_per_step": sum(c for _, _, c in rows),
+           "device_busy_share": (total_us / 1e3) / (per_step * 1e3),
+           "port_kernel_ms": port_us / 1e3,
+           "top_kernels_ms": [[k[:70], c, us / 1e3]
+                              for us, k, c in rows[:16]],
+           "card": card}
+    log(json.dumps({"srcnn_patch_steady_state": rec}))
+    check(port_us == 0, "the srcnn patch step ran a port kernel")
+    return rec
+
+
+def srcnn_predict_patch_modes(tmp, dev, patch_npy, tiny=False):
+    """(g) The predict CLI with (d)'s patch in each --patch_mode on phase
+    4's first frame: no port kernel; the card's composite on the ingested
+    frame equals the CPU's bit for bit, and the saved input is the CPU
+    composite's pixels."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import (
+        composite, main as predict_main)
+    from eval_driving_safety_tpu_torch.config import PLACEMENT_BANDS
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, srcnn_clean01_device)
+    from eval_driving_safety_tpu_torch.data.kitti import (load_image_u8,
+                                                          srcnn_to_rgb01)
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    cfg = srcnn_cfg(tiny)
+    data = os.path.join(tmp, "kitti")
+    b = prepare_srcnn_batch_u8([KittiStereoDataset(data).get(0)], cfg.input)
+    means = np.asarray(cfg.input.pixel_means_bgr, np.float32)
+
+    def ingest(device):
+        put = lambda a: torch.as_tensor(a).to(device)
+        w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w", "wmask",
+                                    "c")}
+        return [srcnn_clean01_device(w, put(b[k])) * 255.0 - put(means)
+                for k in ("im_left_u8", "im_right_u8")]
+    rec = {}
+    for mode in PLACEMENT_BANDS:
+        _cuda.reset_launches()
+        inp = os.path.join(tmp, f"srcnn_patch_in_{mode}")
+        run_cli(["--data_path", data, "--detector", "srcnn", "--device",
+                 str(dev), "--debug", "--debugnum", "1", "--patch_npy",
+                 patch_npy, "--patch_mode", mode, "--save_input_dir", inp,
+                 "--result_dir", os.path.join(tmp, f"srcnn_patch_res_{mode}")]
+                + (["--tiny"] if tiny else []), predict_main)
+        check(not any(_cuda.launches.values()),
+              f"srcnn --patch_mode {mode}: launches {dict(_cuda.launches)}")
+        with torch.inference_mode():
+            card = composite(patch_npy, mode, 0, *ingest(dev))
+            cpu = composite(patch_npy, mode, 0, *ingest("cpu"))
+            clean = ingest("cpu")
+        for k, sub in enumerate(("image_2", "image_3")):
+            check(torch.equal(card[k].cpu(), cpu[k]),
+                  f"srcnn --patch_mode {mode} {sub}: card composite != cpu")
+            saved = load_image_u8(os.path.join(inp, sub, "000001.png"))
+            want = np.clip(srcnn_to_rgb01(cpu[k][0].numpy(), means) * 255.0,
+                           0, 255).astype(np.uint8)
+            check(np.array_equal(saved, want), f"srcnn --patch_mode {mode} "
+                  f"{sub}: saved input != cpu composite")
+        cols = np.nonzero((cpu[1][0] != clean[1][0]).any(-1).any(0)
+                          .numpy())[0]
+        rec[mode] = [int(cols.min()), int(cols.max())] if cols.size else []
+    log(json.dumps({"srcnn_predict_patch_modes": {
+        "right_view_columns": rec}}))
+
+
+def srcnn_fp32_predict(tmp, dev, tiny=False):
+    """(h) The srcnn predict CLI once with --fp32 (1 frame): TF32 turned
+    off by the CLI, its txt written, no port kernel launched."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _cuda.reset_launches()
+    res = os.path.join(tmp, "srcnn_pred_fp32")
+    t, _, _ = run_cli(["--data_path", os.path.join(tmp, "kitti"),
+                       "--detector", "srcnn", "--fp32", "--debug",
+                       "--debugnum", "1", "--device", str(dev), "--ckpt",
+                       os.path.join(tmp, "srcnn_planted.pt"),
+                       "--result_dir", res] + (["--tiny"] if tiny else []),
+                      predict_main)
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "the --fp32 srcnn predict CLI left TF32 on")
+    check(not any(_cuda.launches.values()),
+          f"the --fp32 srcnn predict CLI launched {dict(_cuda.launches)}")
+    predict_layout_ok(res, SRCNN_IDS[:1], srcnn_cfg(tiny, "float32"))
+    with open(os.path.join(res, "data", SRCNN_IDS[0] + ".txt")) as f:
+        n = len(f.read().splitlines())
+    log(json.dumps({"srcnn_fp32_predict": {"run_s": t, "detections": n}}))
+
+
+def srcnn_predict_patch_phase(tmp, dev, card, tiny=False):
+    """Phase 9 over phase 4's and phase 8's frames in `tmp`: the launches
+    of its predict CLI runs and their pairs, and those of its patch CLI
+    run and its steps."""
+    import torch
+    p_launches, pairs = srcnn_predict_cli(tmp, dev, tiny)
+    srcnn_decode_card_vs_cpu(tmp, dev, tiny)
+    torch.cuda.empty_cache()
+    srcnn_predict_steady_state(tmp, dev, card, tiny)
+    torch.cuda.empty_cache()
+    patch_launches, steps, patch_npy = srcnn_patch_cli(tmp, dev, tiny)
+    tiny_srcnn_patch_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    srcnn_patch_steady_state(tmp, dev, card, tiny)
+    torch.cuda.empty_cache()
+    srcnn_predict_patch_modes(tmp, dev, patch_npy, tiny)
+    srcnn_fp32_predict(tmp, dev, tiny)
+    torch.cuda.empty_cache()
+    return p_launches, pairs, patch_launches, steps
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2320,8 +2982,12 @@ def main():
         torch.cuda.empty_cache()
         compat_steady_state(tar, dev, card)
         torch.cuda.empty_cache()
-        # 8. the Stereo R-CNN attack over the same frames
+        # 8. the Stereo R-CNN attack over the same frames; 9. its predict
+        # over the attacked sweep and the clean frames, and its patch
+        # attack
         srcnn_launches = stereo_rcnn_phase(tmp, dev, card)
+        sp_launches, sp_pairs, spatch_launches, spatch_steps = \
+            srcnn_predict_patch_phase(tmp, dev, card)
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
 
@@ -2415,6 +3081,10 @@ def main():
             # phase 8: the Stereo R-CNN attack launches none of them
             "launches_per_srcnn_attack_iter": srcnn_launches[name] / (
                 len(SRCNN_IDS) * SRCNN_ITERS * 3),
+            # phase 9: nor do its predict and patch attack
+            "launches_per_srcnn_predict_pair": sp_launches[name] / sp_pairs,
+            "launches_per_srcnn_patch_step":
+                spatch_launches[name] / spatch_steps,
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),

@@ -206,6 +206,15 @@ def make_srcnn_model(args, cfg, device):
     return model, uncert.to(device)
 
 
+def use_srcnn_precision(cfg) -> None:
+    """A float32 Stereo R-CNN computes in float32: TF32 off in cuDNN's
+    convs and cuBLAS's products (bf16 configs leave the flags alone)."""
+    import torch
+    if cfg.dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def use_deterministic_kernels(device) -> None:
     """Make runs repeat bit for bit on a CUDA device as far as library
     kernels go (algorithms without a fixed summation order raise instead

@@ -33,7 +33,8 @@ import torch
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, add_io_args, add_scale_args, log,
     make_dataset, make_dsgn_cfg, make_dsgn_model, make_srcnn_cfg,
-    make_srcnn_model, make_writer, use_deterministic_kernels)
+    make_srcnn_model, make_writer, use_deterministic_kernels,
+    use_srcnn_precision)
 
 # queued replay jobs: each pins a packed trajectory and a host batch
 _MAX_PENDING_REPLAYS = 3
@@ -205,10 +206,7 @@ def run_srcnn(args):
     device = torch.device(args.device)
     use_deterministic_kernels(device)
     cfg = make_srcnn_cfg(args, default_bf16=True, default_s2d=True)
-    if cfg.dtype == "float32":
-        # f32 means f32: no TF32 in cuDNN convs or cuBLAS products
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    use_srcnn_precision(cfg)
     model, uncert = make_srcnn_model(args, cfg, device)
     a_pix = 1.0 if args.alpha is None else args.alpha
     e_pix = 255.0 * 0.3 if args.eps is None else args.eps

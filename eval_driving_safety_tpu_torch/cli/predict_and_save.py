@@ -1,20 +1,29 @@
-"""DSGN predict and KITTI export on one CUDA card.
+"""Predict and KITTI export on one CUDA card: DSGN and Stereo R-CNN.
 
-Counterpart of `eval_driving_safety_tpu.cli.predict_and_save --detector
-dsgn`, with the same flags and the same output layout: run the detector
-over (attacked) image dirs and write
+Counterpart of `eval_driving_safety_tpu.cli.predict_and_save`, with the
+same flags and the same output layout: run the detector over (attacked)
+image dirs and write
   <result_dir>/data/<id>.txt       16-field KITTI detection lines,
-  <result_dir>/metrics.jsonl       depth error metrics and the AP table,
+  <result_dir>/metrics.jsonl       depth error metrics (DSGN) and the AP
+                                   table,
   <result_dir>/refer/<id>.png      detection panels (--plot),
-and on request the depth maps (.npy), pseudo-lidar clouds (.bin), input
-images and every submodule's activations. Frames go to the card as raw
-uint8; forward, score map, top-k, rotated NMS and box decode run there,
-and only the (B, max_detections) detections come back, in one fetch per
-batch. `--patch_npy` composites a trained patch before the forward in
-one of four placements (`--patch_mode`).
+and on request the input images and every submodule's activations,
+and for DSGN the depth maps (.npy) and pseudo-lidar clouds (.bin).
+`--patch_npy` composites a trained patch before the forward in one of
+four placements (`--patch_mode`).
 
-On random weights (no `--ckpt`) the BEV head's class bias of -4.59 keeps
+DSGN (`--detector dsgn`): frames go to the card as raw uint8; forward,
+score map, top-k, rotated NMS and box decode run there, and only the
+(B, max_detections) detections come back, in one fetch per batch. On
+random weights (no `--ckpt`) the BEV head's class bias of -4.59 keeps
 every score under the default threshold of 0.1, so the txts are empty.
+
+Stereo R-CNN (`--detector srcnn`, StereoRCNNConfig(), bf16 unless
+`--fp32`): the card resizes the uint8 frames to the network's 600 rows
+exactly (data.exact_resize) and runs the forward on every post-NMS
+proposal; the outputs come back in one fetch per batch, and the host
+decodes them, runs NMS and the 3D box solve; the dense alignment runs
+on the card's network-scale images (inference.stereo_rcnn_predict).
 
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.predict_and_save \\
@@ -22,6 +31,10 @@ Usage:
       --split_file val.txt --image_2_dir dsgn_pgd_iters_4/image_2 \\
       --image_3_dir dsgn_pgd_iters_4/image_3 --ckpt ck/epoch10 \\
       --result_dir results --eval_ap --scale paper
+  python -m eval_driving_safety_tpu_torch.cli.predict_and_save \\
+      --detector srcnn --data_path KITTI/object/training \\
+      --split_file val.txt --ckpt srcnn_state.pt --result_dir results \\
+      --eval_ap
 """
 from __future__ import annotations
 
@@ -75,10 +88,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the patch placements")
     p.add_argument("--bf16", action="store_true",
-                   help="Stereo R-CNN trunk dtype (not ported yet; DSGN "
-                        "takes its dtype from the config)")
+                   help="bfloat16 trunk for the srcnn detector (already "
+                        "its default; DSGN takes its dtype from the "
+                        "config)")
     p.add_argument("--fp32", action="store_true",
-                   help="Stereo R-CNN trunk dtype (not ported yet)")
+                   help="float32 trunk for the srcnn detector, with TF32 "
+                        "off")
     add_scale_args(p)
     add_device_args(p)
     return p.parse_args(argv)
@@ -168,6 +183,8 @@ class FeatureRecorder:
         leaves = []
 
         def walk(x, parts):
+            if x is None:                 # an empty subtree, as in JAX
+                return
             if isinstance(x, dict):
                 for k in sorted(x):
                     walk(x[k], parts + (str(k),))
@@ -186,23 +203,30 @@ def _featdir(args, fid):
     return d
 
 
-def _save_feats(args, b, feats):
+def _save_feats(args, b, feats, batch_axis_only=False):
     """Frame i's slice of every activation, as float32 .npy (bf16 ones
-    widened: numpy has no bfloat16)."""
+    widened: numpy has no bfloat16). With `batch_axis_only`, an
+    activation whose first axis is not the batch's (the rois of the whole
+    batch, flattened) is written whole for every frame."""
+    n = len(b["frame_ids"])
     for i, fid in enumerate(b["frame_ids"]):
         d = _featdir(args, fid)
         for j, (name, val) in enumerate(feats):
-            v = val[i] if val.dim() > 0 else val
+            per_frame = val.dim() > 0 and (not batch_axis_only
+                                           or val.shape[0] == n)
+            v = val[i] if per_frame else val
             np.save(os.path.join(d, f"feat{j:02d}_{name}.npy"),
                     v.detach().float().cpu().numpy())
 
 
-def _save_inputs(args, b, il, ir):
+def _save_inputs(args, b, il, ir, to_rgb01=lambda x: x):
+    """The network's input frames as PNGs; `to_rgb01` maps a frame's
+    array to RGB [0,1]."""
     from eval_driving_safety_tpu_torch.data.kitti import save_image
     for i, fid in enumerate(b["frame_ids"]):
         for sub, img in (("image_2", il[i]), ("image_3", ir[i])):
             save_image(os.path.join(args.save_input_dir, sub, fid + ".png"),
-                       img.cpu().numpy())
+                       to_rgb01(img.cpu().numpy()))
 
 
 def composite(patch_npy, patch_mode, seed, il, ir, radius_shift=-64.0):
@@ -296,6 +320,77 @@ def run_dsgn(args):
     _maybe_eval_ap(args, ds, mpath)
 
 
+def run_srcnn(args):
+    from eval_driving_safety_tpu_torch.cli.common import (
+        make_srcnn_cfg, make_srcnn_model, use_srcnn_precision)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        prepare_srcnn_batch_u8, srcnn_clean01_device)
+    from eval_driving_safety_tpu_torch.data.kitti import (srcnn_to_rgb01,
+                                                          write_detections)
+    from eval_driving_safety_tpu_torch.inference.stereo_rcnn_predict import (
+        fetch_outputs, predict_image)
+    device = torch.device(args.device)
+    use_deterministic_kernels(device)
+    cfg = make_srcnn_cfg(args, default_bf16=True)
+    use_srcnn_precision(cfg)
+    model, _ = make_srcnn_model(args, cfg, device)
+    ds = make_dataset(args)
+    mpath = metrics_path(args.result_dir)
+    pix_means = cfg.input.pixel_means_bgr
+    means = torch.tensor(pix_means, dtype=torch.float32, device=device)
+    to_rgb01 = partial(srcnn_to_rgb01, pixel_means_bgr=pix_means)
+    prep = partial(prepare_srcnn_batch_u8, cfg=cfg.input)
+
+    def put(x):
+        return torch.as_tensor(x).to(device, non_blocking=True)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b in ds.batches(args.batch, prepare=prep):
+            weights = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
+                                              "wmask", "c")}
+            # BGR pixels minus the means at network scale
+            il = srcnn_clean01_device(weights, put(b["im_left_u8"])) \
+                * 255.0 - means
+            ir = srcnn_clean01_device(weights, put(b["im_right_u8"])) \
+                * 255.0 - means
+            if args.patch_npy:
+                il, ir = composite(args.patch_npy, args.patch_mode,
+                                   args.seed, il, ir)
+            if args.save_input_dir:
+                _save_inputs(args, b, il, ir, to_rgb01)
+            if args.save_feat_dir:
+                with FeatureRecorder(model) as rec:
+                    out = model(il, ir, mode="infer")
+                _save_feats(args, b, rec.flat(), batch_axis_only=True)
+            else:
+                out = model(il, ir, mode="infer")
+            host = fetch_outputs(out)
+            for i, fid in enumerate(b["frame_ids"]):
+                scale = float(b["scales"][i])
+                dets = predict_image(host, il[i], ir[i], b["calibs"][i], cfg,
+                                     image_hw=b["orig_hw"][i],
+                                     batch_index=i, image_scale=scale)
+                write_detections(
+                    os.path.join(args.result_dir, "data", fid + ".txt"),
+                    dets)
+                if args.plot:
+                    from eval_driving_safety_tpu_torch.inference.vis import \
+                        save_detection_panel
+                    # the panel is at network scale
+                    save_detection_panel(
+                        os.path.join(args.result_dir, "refer", fid + ".png"),
+                        to_rgb01(il[i].cpu().numpy()),
+                        to_rgb01(ir[i].cpu().numpy()),
+                        [dict(d, bbox=d["bbox"] * scale) for d in dets],
+                        vis_thresh=args.vis_thresh)
+            t1 = time.perf_counter()
+            log(f"exported {len(b['frame_ids'])} frames "
+                f"({(t1 - t0) * 1e3:.1f} ms)")
+            t0 = t1
+    _maybe_eval_ap(args, ds, mpath)
+
+
 def _maybe_eval_ap(args, ds, mpath):
     if not args.eval_ap:
         return
@@ -317,11 +412,7 @@ def _maybe_eval_ap(args, ds, mpath):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.detector == "srcnn":
-        raise SystemExit("--detector srcnn is not ported yet: Stereo R-CNN "
-                         "predict is ROADMAP item 10 (use "
-                         "eval_driving_safety_tpu for it)")
-    run_dsgn(args)
+    (run_dsgn if args.detector == "dsgn" else run_srcnn)(args)
 
 
 if __name__ == "__main__":

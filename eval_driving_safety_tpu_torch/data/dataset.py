@@ -226,6 +226,23 @@ def srcnn_cleanv_host(batch_u8: Dict) -> tuple:
     return out[0], out[1]
 
 
+def srcnn_clean01_device(weights: Dict, img_u8: torch.Tensor) -> torch.Tensor:
+    """The card's ingest into BGR [0,1] at network scale: the v-space
+    frame of `srcnn_cleanv_device` times the batch's `c` (weights["c"],
+    (B,)), one f32 multiply; 0 past each frame's width (black, which is
+    the reference's -mean padding once the means are subtracted)."""
+    return srcnn_cleanv_device(weights, img_u8) \
+        * weights["c"][:, None, None, None]
+
+
+def srcnn_clean01_host(batch_u8: Dict) -> tuple:
+    """The host twin of `srcnn_clean01_device`, equal to it bit for bit:
+    (left, right), each (B, H, W, 3) float32."""
+    c = np.asarray(batch_u8["c"], np.float32)[:, None, None, None]
+    return tuple(v.astype(np.float32) * c
+                 for v in srcnn_cleanv_host(batch_u8))
+
+
 def srcnn_cleanv_q0_host(batch_u8: Dict) -> tuple:
     """`srcnn_cleanv_host` and the quantized clean frames (iteration 0):
     (v_left, v_right, q_left, q_right)."""
@@ -255,6 +272,13 @@ def quantize_v_rgb_u8(x_v, c255):
 def quantize_v_batch_u8(v_i32: np.ndarray, c255) -> np.ndarray:
     """(B, H, W, 3) int32 v-space frames -> truncated RGB uint8."""
     return quantize_v_rgb_u8(v_i32.astype(np.float32), c255)
+
+
+def srcnn_clip_bounds(cfg: SRCNNInputConfig):
+    """Per-channel pixel bounds in the Stereo R-CNN input space (BGR minus
+    the means): (-means, 255 - means), each (3,) float32."""
+    means = np.asarray(cfg.pixel_means_bgr, np.float32)
+    return -means, 255.0 - means
 
 
 def u8_to_01(x):

@@ -317,9 +317,20 @@ def test_cli_trains_writes_the_reference_layout_and_resumes(tmp_path,
         assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
 
 
-def test_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="item 11"):
-        C.main(["--data_path", str(tmp_path), "--detector", "srcnn"])
+def test_cli_srcnn_takes_ratio_eps_and_iters(tmp_path, capsys):
+    """--detector srcnn at the tiny config with explicit --ratio, --eps
+    and --iters: the patch's size, and one epoch's change within eps x
+    iters x batches."""
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ["000001", "000002"])
+    C.main(["--data_path", data, "--detector", "srcnn", "--tiny",
+            "--device", "cpu", "--epochs", "1", "--ratio", "0.2", "--eps",
+            "0.05", "--iters", "1", "--save_dir", str(tmp_path / "p")])
+    assert "patch dim 19 (radius 9)" in capsys.readouterr().out
+    p0, p1 = (np.load(tmp_path / "p" / f"epoch{e}" / "patch.npy")
+              for e in (0, 1))
+    assert p1.shape == (1, 3, 19, 19)
+    assert 0 < np.abs(p1 - p0).max() <= 0.05 * 1 * 2 + 1e-6
 
 
 def test_cli_takes_every_flag_of_the_jax_cli():

@@ -271,9 +271,20 @@ def test_cli_patch_modes_composite_the_patch(predict_data, mode):
         int(320 * hi) + 10
 
 
-def test_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="item 10"):
-        main(["--data_path", str(tmp_path), "--detector", "srcnn"])
+def test_cli_srcnn_runs_on_the_tiny_config(tmp_path, capsys):
+    """--detector srcnn on random tiny weights: one txt per frame (empty
+    or 16-field KITTI lines), the AP table in metrics.jsonl."""
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ["000001", "000002"])
+    out = tmp_path / "res"
+    main(["--data_path", data, "--detector", "srcnn", "--tiny", "--device",
+          "cpu", "--result_dir", str(out), "--eval_ap"])
+    assert sorted(os.listdir(out / "data")) == ["000001.txt", "000002.txt"]
+    for fid in ("000001", "000002"):
+        for line in (out / "data" / f"{fid}.txt").read_text().splitlines():
+            assert len(line.split()) == 16
+    assert "ap_table" in (out / "metrics.jsonl").read_text()
+    assert "AP (Car, moderate" in capsys.readouterr().out
 
 
 def test_cli_takes_every_flag_of_the_jax_cli():
