@@ -235,14 +235,6 @@ def srcnn_clean01_device(weights: Dict, img_u8: torch.Tensor) -> torch.Tensor:
         * weights["c"][:, None, None, None]
 
 
-def srcnn_clean01_host(batch_u8: Dict) -> tuple:
-    """The host twin of `srcnn_clean01_device`, equal to it bit for bit:
-    (left, right), each (B, H, W, 3) float32."""
-    c = np.asarray(batch_u8["c"], np.float32)[:, None, None, None]
-    return tuple(v.astype(np.float32) * c
-                 for v in srcnn_cleanv_host(batch_u8))
-
-
 def srcnn_cleanv_q0_host(batch_u8: Dict) -> tuple:
     """`srcnn_cleanv_host` and the quantized clean frames (iteration 0):
     (v_left, v_right, q_left, q_right)."""

@@ -161,13 +161,6 @@ def write_detections(path: str, detections: Sequence[dict]) -> None:
                 d["score"]) + "\n")
 
 
-def rgb01_to_srcnn(img01: np.ndarray, pixel_means_bgr) -> np.ndarray:
-    """RGB [0,1] -> Stereo R-CNN input: BGR [0,255] minus the per-channel
-    means."""
-    bgr = img01[..., ::-1] * 255.0
-    return bgr - np.asarray(pixel_means_bgr, dtype=img01.dtype)
-
-
 def srcnn_to_rgb01(img: np.ndarray, pixel_means_bgr) -> np.ndarray:
     """Stereo R-CNN input (BGR minus the means) -> RGB [0,1], clipped."""
     bgr = img + np.asarray(pixel_means_bgr, dtype=img.dtype)

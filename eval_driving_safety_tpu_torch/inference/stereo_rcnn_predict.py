@@ -13,7 +13,7 @@ successes only.
 Where each step runs: the model's `mode="infer"` outputs come to the
 host in one transfer per batch (`fetch_outputs`); the box decode, NMS
 and the solves run there, on CPU tensors and numpy f64. The alignment
-runs on the device that holds the network-scale images (`device`), with
+runs on the device that holds the network-scale images, with
 one small upload and one fetch per class and frame.
 """
 from __future__ import annotations
@@ -91,16 +91,16 @@ def _decode(rois, deltas):
 
 
 def predict_image(outputs, im_left, im_right, calib, cfg: StereoRCNNConfig,
-                  image_hw=None, dense_align: bool = True,
-                  batch_index: int = 0, image_scale: float = 1.0,
-                  device=None) -> List[Dict]:
+                  image_hw=None, batch_index: int = 0,
+                  image_scale: float = 1.0) -> List[Dict]:
     """Row `batch_index` of a batch's outputs -> KITTI detection dicts.
 
     outputs: HostOutputs (or anything whose fields index as arrays, the
     rois with or without their batch column). im_left/im_right: (H, W, 3)
     float32 tensors in the model's pixel convention at network scale,
-    read by the dense alignment only, which runs on `device` (default:
-    the images' device). `image_hw` is the original (pre-resize) size and
+    read by the dense alignment only, which runs on the images' device;
+    None for both skips the alignment. `image_hw` is the original
+    (pre-resize) size and
     `image_scale` the network / original scale: boxes and keypoints go
     back to the original resolution before the 3D solve, whose
     calibration is the original's."""
@@ -114,8 +114,6 @@ def predict_image(outputs, im_left, im_right, calib, cfg: StereoRCNNConfig,
     kpts_prob = np.asarray(outputs.kpts_prob[i])
     lb_prob = np.asarray(outputs.left_border_prob[i])
     rb_prob = np.asarray(outputs.right_border_prob[i])
-    if device is None and im_left is not None:
-        device = im_left.device
 
     h_img, w_img = image_hw or (cfg.input.height, cfg.input.width)
     h_net, w_net = cfg.input.height, cfg.input.width
@@ -174,15 +172,16 @@ def predict_image(outputs, im_left, im_right, calib, cfg: StereoRCNNConfig,
         if sel_rows.size == 0:
             continue
 
-        if dense_align and im_left is not None:
+        if im_left is not None:
             init_disp = calib.f_u * calib.baseline / np.maximum(
                 states[sel_rows, 2], 0.5)
 
             def put(a):
-                return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                return torch.from_numpy(np.asarray(a, np.float32)).to(
+                    im_left.device)
             # the photometric alignment samples the network-scale images
             ok, disp = align_disparities(
-                im_left.to(device), im_right.to(device),
+                im_left, im_right,
                 put(cls_left[sel_rows] * image_scale),
                 put(cls_kpts[sel_rows][:, 3:5] * image_scale),
                 put(init_disp * image_scale))

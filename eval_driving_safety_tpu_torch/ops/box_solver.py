@@ -14,7 +14,6 @@ convention (inference.fcos3d_post.box3d_corners).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,60 +30,6 @@ def _box_corners_cam(x, y, z, dims, theta) -> np.ndarray:
     return np.concatenate([bottom, top], axis=0)
 
 
-def _residuals(state, dims, box_left, box_right, kpt_u, kpt_idx, calib,
-               z_fixed: Optional[float] = None) -> np.ndarray:
-    if z_fixed is None:
-        x, y, z, theta = state
-    else:
-        x, y, theta = state
-        z = z_fixed
-    f = calib.f_u
-    cu, cv = calib.c_u, calib.c_v
-    b = calib.baseline
-    corners = _box_corners_cam(x, y, z, dims, theta)
-    zs = np.maximum(corners[:, 2], 0.5)
-    us = f * corners[:, 0] / zs + cu
-    vs = f * corners[:, 1] / zs + cv
-    us_r = f * (corners[:, 0] - b) / zs + cu
-    res = [
-        us.min() - box_left[0],
-        vs.min() - box_left[1],
-        us.max() - box_left[2],
-        vs.max() - box_left[3],
-        us_r.min() - box_right[0],
-        us_r.max() - box_right[2],
-    ]
-    if kpt_u is not None and kpt_u >= 0:
-        res.append(us[int(kpt_idx) % 4] - kpt_u)
-    return np.asarray(res)
-
-
-def _gauss_newton(state0, res_fn, n_iter: int = 20,
-                  damping: float = 1e-3) -> Tuple[np.ndarray, float]:
-    state = np.asarray(state0, np.float64)
-    n = state.size
-    last_cost = np.inf
-    for _ in range(n_iter):
-        r = res_fn(state)
-        cost = float((r * r).sum())
-        jac = np.zeros((r.size, n))
-        eps = 1e-4
-        for j in range(n):
-            sp = state.copy()
-            sp[j] += eps
-            jac[:, j] = (res_fn(sp) - r) / eps
-        jtj = jac.T @ jac + damping * np.eye(n)
-        try:
-            step = np.linalg.solve(jtj, jac.T @ r)
-        except np.linalg.LinAlgError:
-            break
-        state = state - step
-        if abs(last_cost - cost) < 1e-8:
-            break
-        last_cost = cost
-    return state, float((res_fn(state) ** 2).sum())
-
-
 def initial_state(calib, alpha, dims, box_left, box_right):
     """Init from center disparity + viewpoint geometry."""
     uc_l = (box_left[0] + box_left[2]) / 2.0
@@ -98,52 +43,12 @@ def initial_state(calib, alpha, dims, box_left, box_right):
     return np.array([x, y, z, theta])
 
 
-def solve_x_y_z_theta_from_kpt(im_shape, calib, alpha, dims, box_left,
-                               box_right, kpts) -> Tuple[int, np.ndarray]:
-    """Returns (status, [x, y, z, theta]); status <= 0 = failed.
-
-    kpts row layout (decode contract): [u, type, prob, left_border_u,
-    right_border_u].
-    """
-    st0 = initial_state(calib, alpha, dims, box_left, box_right)
-    kpt_u = float(kpts[0]) if kpts is not None else -1.0
-    kpt_idx = int(kpts[1]) if kpts is not None else 0
-
-    def res(s):
-        return _residuals(s, dims, box_left, box_right, kpt_u, kpt_idx,
-                          calib)
-
-    state, cost = _gauss_newton(st0, res)
-    ok = (np.isfinite(state).all() and 0.5 < state[2] < 200.0
-          and cost < 1e4)
-    return (1 if ok else 0), state
-
-
-def solve_x_y_theta_from_kpt(im_shape, calib, alpha, dims, box_left,
-                             disparity, kpts) -> Tuple[np.ndarray, float]:
-    """After dense alignment fixed the disparity: solve (x, y, theta) with
-    z = f*b/disparity. Returns ([x, y, theta], z)."""
-    z = calib.f_u * calib.baseline / max(float(disparity), 0.5)
-    box_right = box_left - np.array([disparity, 0, disparity, 0])
-    st_full = initial_state(calib, alpha, dims, box_left, box_right)
-    st0 = np.array([st_full[0], st_full[1], st_full[3]])
-    kpt_u = float(kpts[0]) if kpts is not None else -1.0
-    kpt_idx = int(kpts[1]) if kpts is not None else 0
-
-    def res(s):
-        return _residuals(s, dims, box_left, box_right, kpt_u, kpt_idx,
-                          calib, z_fixed=z)
-
-    state, _ = _gauss_newton(st0, res)
-    return state, z
-
-
 def _batch_residuals(state, dims, box_left, box_right, kpt_u, kpt_idx,
                      calib, z_fixed=None) -> np.ndarray:
-    """Vectorized _residuals over N detections: state (N,4) — or (N,3)
-    with z_fixed (N,) — -> (N, 7). The keypoint row is zero-masked where
-    kpt_u < 0, which contributes nothing to J^T J / J^T r — exactly
-    equivalent to omitting it as the scalar path does."""
+    """The reprojection residuals of N detections: state (N,4) — or
+    (N,3) with z_fixed (N,) — -> (N, 7). The keypoint row is zero-masked
+    where kpt_u < 0, which contributes nothing to J^T J / J^T r — exactly
+    equivalent to omitting it as the reference's scalar solver does."""
     state = np.asarray(state, np.float64)
     if z_fixed is None:
         x, y, z, theta = state[:, 0], state[:, 1], state[:, 2], state[:, 3]
@@ -181,9 +86,10 @@ def _batch_residuals(state, dims, box_left, box_right, kpt_u, kpt_idx,
 
 def _batch_gauss_newton(state0, res_fn, n_iter: int = 20,
                         damping: float = 1e-3):
-    """Vectorized _gauss_newton over N problems (same iteration/stop
-    semantics per problem: update first, then stop when the cost plateaus
-    or the normal equations go singular). res_fn: (N, n) -> (N, 7)."""
+    """Gauss-Newton over N problems at once, each with the reference's
+    scalar iteration and stop rule: update first, then stop when the cost
+    plateaus or the normal equations go singular. res_fn: (N, n) ->
+    (N, 7)."""
     state = np.asarray(state0, np.float64).copy()
     nprob, n = state.shape
     active = np.ones(nprob, bool)
@@ -202,7 +108,7 @@ def _batch_gauss_newton(state0, res_fn, n_iter: int = 20,
             jac[:, :, j] = (res_fn(sp) - r) / eps
         jtj = np.einsum("nrj,nrk->njk", jac, jac) + eye
         jtr = np.einsum("nrj,nr->nj", jac, r)
-        # per-problem singularity == the scalar path's LinAlgError break
+        # per-problem singularity == the scalar solver's LinAlgError break
         ok = np.linalg.det(jtj) > 1e-300
         step = np.zeros_like(state)
         if ok.any():
@@ -218,8 +124,8 @@ def _batch_gauss_newton(state0, res_fn, n_iter: int = 20,
 
 def solve_batch_x_y_z_theta(calib, alphas, dims, boxes_left, boxes_right,
                             kpts):
-    """Batched solve_x_y_z_theta_from_kpt over N detections, with the
-    scalar solver's iteration and stop rule per detection. alphas (N,),
+    """The 3D poses [x, y, z, theta] of N detections, with the
+    reference's scalar iteration and stop rule per detection. alphas (N,),
     dims (N,3), boxes (N,4), kpts (N,>=2) rows [u, type, ...] (u < 0
     disables the keypoint residual). Returns (status (N,) int, states (N,4))."""
     alphas = np.asarray(alphas, np.float64)
@@ -245,8 +151,8 @@ def solve_batch_x_y_z_theta(calib, alphas, dims, boxes_left, boxes_right,
 
 def solve_batch_x_y_theta(calib, alphas, dims, boxes_left, disparities,
                           kpts):
-    """Batched solve_x_y_theta_from_kpt (z fixed by the aligned
-    disparity). Returns (states (N,3) [x, y, theta], z (N,))."""
+    """[x, y, theta] of N detections with z fixed by the aligned
+    disparity, z = f*b/disparity. Returns (states (N,3), z (N,))."""
     alphas = np.asarray(alphas, np.float64)
     dims = np.asarray(dims, np.float64)
     bl = np.asarray(boxes_left, np.float64)

@@ -10,7 +10,6 @@ import os
 import shutil
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -187,13 +186,15 @@ def test_cli_srcnn_patch_epochs_bounds_and_rerun(patch_run, capsys):
 
 def test_cli_srcnn_patch_reads_a_checkpoints_uncert(patch_run, capsys):
     """A checkpoint's uncert weights the loss: the same weights with and
-    without it give other losses and patches."""
+    without it give other losses (one step on one frame each)."""
     cfg = StereoRCNNConfig.tiny()
     sd = StereoRCNN(cfg).init_weights(seed=0).state_dict()
     save_checkpoint(str(patch_run / "ck"),
                     {"params": sd, "uncert": torch.from_numpy(UNCERT)})
-    common = ["--data_path", str(patch_run / "kitti"), "--detector",
-              "srcnn", "--tiny", "--device", "cpu", "--epochs", "1"]
+    kitti_dir(str(patch_run / "kitti1"), ["000001"])
+    common = ["--data_path", str(patch_run / "kitti1"), "--detector",
+              "srcnn", "--tiny", "--device", "cpu", "--epochs", "1",
+              "--iters", "1"]
     C.main(common + ["--save_dir", str(patch_run / "u"), "--ckpt",
                      str(patch_run / "ck")])
     out = capsys.readouterr().out
@@ -220,8 +221,11 @@ def test_cli_predict_with_the_srcnn_patch(patch_run, mode):
     cfg = StereoRCNNConfig.tiny()
     ds = TD.KittiStereoDataset(str(patch_run / "kitti"))
     b = TD.prepare_srcnn_batch_u8([ds.get(0)], cfg.input)
-    clean = TD.srcnn_clean01_host(b)[0][0] * 255.0 - np.asarray(
-        cfg.input.pixel_means_bgr, np.float32)
+    weights = {k: torch.from_numpy(b[k])
+               for k in ("ih", "iw", "den_h", "den_w", "wmask", "c")}
+    clean = TD.srcnn_clean01_device(
+        weights, torch.from_numpy(b["im_left_u8"]))[0].numpy() * 255.0 \
+        - np.asarray(cfg.input.pixel_means_bgr, np.float32)
     cl, _ = TPatch.sample_patch_centers(
         torch.Generator().manual_seed(3), 1, 96, 320, RADIUS,
         col_band=PLACEMENT_BANDS[mode])

@@ -96,8 +96,8 @@ def _problems(n, seed, noise=0.0):
 
 @pytest.mark.parametrize("noise", [0.0, 3.0])
 def test_box_solver_matches_jax(noise):
-    """Every solver entry, the initial state and infer_boundary on seeded
-    problems, exact and with noisy boxes."""
+    """The batched solvers, the initial state and infer_boundary on
+    seeded problems, exact and with noisy boxes."""
     p = _problems(16, 7, noise)
     disp = CALIB.f_u * CALIB.baseline / p["z"]
     for i in range(0, 16, 3):
@@ -105,17 +105,6 @@ def test_box_solver_matches_jax(noise):
         np.testing.assert_allclose(TS.initial_state(*args, p["br"][i]),
                                    JS.initial_state(*args, p["br"][i]),
                                    **SOLVER_TOL)
-        ts, tst = TS.solve_x_y_z_theta_from_kpt((375, 1242), *args,
-                                                p["br"][i], p["kpts"][i])
-        js, jst = JS.solve_x_y_z_theta_from_kpt((375, 1242), *args,
-                                                p["br"][i], p["kpts"][i])
-        assert ts == js
-        np.testing.assert_allclose(tst, jst, **SOLVER_TOL)
-        for t, j in zip(TS.solve_x_y_theta_from_kpt(
-                (375, 1242), *args, disp[i], p["kpts"][i]),
-                JS.solve_x_y_theta_from_kpt(
-                (375, 1242), *args, disp[i], p["kpts"][i])):
-            np.testing.assert_allclose(t, j, **SOLVER_TOL)
     batch = (CALIB, p["alphas"], p["dims"], p["bl"])
     ts, tst = TS.solve_batch_x_y_z_theta(*batch, p["br"], p["kpts"])
     js, jst = JS.solve_batch_x_y_z_theta(*batch, p["br"], p["kpts"])
@@ -140,16 +129,16 @@ def test_solver_recovers_gt_pose():
     dims = np.array([1.5, 1.7, 4.0])
     box_l, box_r, kpt_u, kidx = _project(*gt[:3], dims, gt[3])
     alpha = gt[3] - math.atan2(gt[0], gt[2])
-    kpts = np.array([kpt_u, kidx, 1.0, box_l[0], box_l[2]])
-    status, state = TS.solve_x_y_z_theta_from_kpt(
-        (375, 1242), CALIB, alpha, dims, box_l, box_r, kpts)
-    assert status == 1
-    np.testing.assert_allclose(state, gt, atol=0.3)
-    st, z = TS.solve_x_y_theta_from_kpt(
-        (375, 1242), CALIB, alpha, dims, box_l,
-        CALIB.f_u * CALIB.baseline / gt[2], kpts)
-    np.testing.assert_allclose(z, gt[2], rtol=1e-9)
-    np.testing.assert_allclose(st, [gt[0], gt[1], gt[3]], atol=0.3)
+    kpts = np.array([[kpt_u, kidx, 1.0, box_l[0], box_l[2]]])
+    status, state = TS.solve_batch_x_y_z_theta(
+        CALIB, [alpha], dims[None], box_l[None], box_r[None], kpts)
+    assert status[0] == 1
+    np.testing.assert_allclose(state[0], gt, atol=0.3)
+    st, z = TS.solve_batch_x_y_theta(
+        CALIB, [alpha], dims[None], box_l[None],
+        [CALIB.f_u * CALIB.baseline / gt[2]], kpts)
+    np.testing.assert_allclose(z[0], gt[2], rtol=1e-9)
+    np.testing.assert_allclose(st[0], [gt[0], gt[1], gt[3]], atol=0.3)
     init = TS.initial_state(CALIB, alpha, dims, box_l, box_r)
     assert 12.0 < init[2] < 18.0 and abs(init[0] - gt[0]) < 1.0
 
@@ -162,18 +151,24 @@ def test_infer_boundary_occlusion():
 
 
 def test_batch_solver_matches_scalar_solver():
-    """The batched solves take the scalar ones' iterations and stops, and
-    recover the planted depths."""
+    """The port's batched solves take the JAX package's scalar solvers'
+    iterations and stops, and recover the planted depths."""
     p = _problems(24, 5)
-    status, states = TS.solve_batch_x_y_z_theta(
-        CALIB, p["alphas"], p["dims"], p["bl"], p["br"], p["kpts"])
+    disp = CALIB.f_u * CALIB.baseline / p["z"]
+    batch = (CALIB, p["alphas"], p["dims"], p["bl"])
+    status, states = TS.solve_batch_x_y_z_theta(*batch, p["br"], p["kpts"])
+    fixed, zs = TS.solve_batch_x_y_theta(*batch, disp, p["kpts"])
     for i in range(24):
-        s, st = TS.solve_x_y_z_theta_from_kpt(
-            (375, 1242), CALIB, p["alphas"][i], p["dims"][i], p["bl"][i],
-            p["br"][i], p["kpts"][i])
+        args = ((375, 1242), CALIB, p["alphas"][i], p["dims"][i],
+                p["bl"][i])
+        s, st = JS.solve_x_y_z_theta_from_kpt(*args, p["br"][i],
+                                              p["kpts"][i])
         assert s == status[i]
         if s > 0:
             np.testing.assert_allclose(states[i], st, rtol=1e-5, atol=1e-4)
+        st3, z = JS.solve_x_y_theta_from_kpt(*args, disp[i], p["kpts"][i])
+        np.testing.assert_allclose(zs[i], z, rtol=1e-12)
+        np.testing.assert_allclose(fixed[i], st3, rtol=1e-5, atol=1e-4)
     ok = status > 0
     assert ok.sum() >= 22
     np.testing.assert_allclose(states[ok, 2], p["z"][ok], rtol=0.15)
@@ -266,9 +261,9 @@ def _sample(fid, hw, seed):
 
 
 def test_ingest_matches_jax_bit_for_bit():
-    """Two frames of different sizes: the port's ingest on CPU tensors,
-    its host twin and JAX's device and host ingest give the same bits;
-    the pixel conversions match JAX's."""
+    """Two frames of different sizes: the port's ingest on CPU tensors
+    and JAX's device and host ingest give the same bits; the pixel
+    conversion matches JAX's and inverts JAX's rgb01_to_srcnn."""
     cfg = SRCNNInputConfig(height=96, width=320)
     raw = [_sample("000001", (90, 300), 0), _sample("000002", (75, 200), 1)]
     tb = TD.prepare_srcnn_batch_u8(
@@ -280,23 +275,20 @@ def test_ingest_matches_jax_bit_for_bit():
     keys = ("ih", "iw", "den_h", "den_w", "wmask", "c")
     weights = {k: torch.from_numpy(tb[k]) for k in keys}
     jw = {k: jnp.asarray(jb[k]) for k in keys}
-    host = TD.srcnn_clean01_host(tb)
     jhost = JD.srcnn_clean01_host(jb)
-    for side, h, jh in zip(("im_left_u8", "im_right_u8"), host, jhost):
+    for side, jh in zip(("im_left_u8", "im_right_u8"), jhost):
         dev = TD.srcnn_clean01_device(weights, torch.from_numpy(tb[side]))
         jdev = jax.jit(JD.srcnn_clean01_device)(jw, jnp.asarray(jb[side]))
-        assert dev.dtype == torch.float32 and h.dtype == np.float32
-        for want in (h, np.asarray(jdev), jh):
+        assert dev.dtype == torch.float32
+        for want in (np.asarray(jdev), jh):
             np.testing.assert_array_equal(dev.numpy(), want)
         assert dev[1, :, 256:].abs().max() == 0     # past the 2nd width
     lo, hi = TD.srcnn_clip_bounds(cfg)
     jlo, jhi = JD.srcnn_clip_bounds(JaxCfg.tiny().input)
     np.testing.assert_array_equal(lo, jlo)
     np.testing.assert_array_equal(hi, jhi)
-    img01 = host[0][0][..., ::-1].copy()
-    s = TK.rgb01_to_srcnn(img01, cfg.pixel_means_bgr)
-    np.testing.assert_array_equal(s, JK.rgb01_to_srcnn(img01,
-                                                       cfg.pixel_means_bgr))
+    img01 = jhost[0][0][..., ::-1].copy()
+    s = JK.rgb01_to_srcnn(img01, cfg.pixel_means_bgr)
     back = TK.srcnn_to_rgb01(s, cfg.pixel_means_bgr)
     np.testing.assert_array_equal(back, JK.srcnn_to_rgb01(
         s, cfg.pixel_means_bgr))
@@ -456,8 +448,7 @@ def test_predict_image_recovers_a_planted_car(scale):
                               input=SRCNNInputConfig(height=600, width=1984))
     outputs, gt, box_l = _planted_outputs(scale)
     dets = TP.predict_image(outputs, None, None, CALIB, cfg,
-                            image_hw=(375, 1242), dense_align=False,
-                            image_scale=scale)
+                            image_hw=(375, 1242), image_scale=scale)
     assert len(dets) == 1 and dets[0]["type"] == "Car"
     d = dets[0]
     assert d["score"] > 0.9
