@@ -95,7 +95,31 @@ Phases (any failure ends the run with a non-zero exit):
      step (`srcnn_patch_steady_state`); (g) predict with (d)'s patch in
      each --patch_mode, the card's composite equal to the CPU's; (h) one
      --fp32 predict, which must turn TF32 off.
-The line before the last is the kernels' JSON record (the four kernels
+  10. the scene classifiers at the published widths (ResNet-50 and
+     VGG-16 at 224, batch 32, fp32 with TF32 off), none launching a port
+     kernel: (a) crop_images over phase 4's frames, then 64 seeded crops
+     and their CSVs; (b) train_classifier for each task, 5 epochs, each
+     with finite losses and an epoch5/ checkpoint whose backbone equals
+     its seeded init bit for bit; (c) validate_classifier on each; (d)
+     classify_split over phase 4's frames on planted heads (every score
+     far from 0.5, both outcomes) on the card and on the CPU: the same
+     files, every score within 1e-4; (e) one train step of each on the
+     card and on the CPU with the same dropout mask; (f)
+     `classifier_steady_state`: train steps/s at batch 32, classify_split
+     frames/s, busy share, peak memory.
+  11. Stereo R-CNN training (cli/train_detector.py --detector srcnn) at
+     StereoRCNNConfig() fp32 and the published checkpoint's layout, none
+     launching a port kernel: (a) 2 epochs over phase 4's frames with a
+     checkpoint each and a resumed third: finite losses, an `uncert` that
+     moves, FrozenBatchNorm statistics bit for bit at their init; the
+     srcnn attack and predict CLIs on the last checkpoint; (b) one tiny
+     fp32 training step on the card and on the CPU with the same draws;
+     (c) the steady-state step (`srcnn_train_step`: steps/s, busy share,
+     peak memory, top kernels); (d) a random state dict in the upstream
+     published layout, read by the srcnn attack, predict and patch CLIs
+     with 0 unmapped keys.
+Each phase's seconds are printed (`phase_s`). The line before the last
+is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
 step); the last line is {"ok": true, "device": {...}}.
 """
@@ -2912,6 +2936,715 @@ def srcnn_predict_patch_phase(tmp, dev, card, tiny=False):
     return p_launches, pairs, patch_launches, steps
 
 
+# --------------------------------------------------------------- phase 10
+
+CLS_TASKS = ("road_type", "dynamic_vehicle")
+CLS_EPOCHS, CLS_BATCH, CLS_CROPS = 5, 32, 64
+
+
+@contextlib.contextmanager
+def classifier_size(size=None):
+    """The classifier CLIs at `size` px instead of the published 224 (a
+    rehearsal on the CPU runs at 64); None leaves them as they are."""
+    from eval_driving_safety_tpu_torch.cli import train_classifier as TC
+    from eval_driving_safety_tpu_torch.config import replace
+    orig = TC.RoadTypeConfig, TC.DynamicVehicleConfig
+    if size is not None:
+        TC.RoadTypeConfig = lambda: replace(orig[0](), image_size=size)
+        TC.DynamicVehicleConfig = lambda: replace(orig[1](), image_size=size)
+    try:
+        yield
+    finally:
+        TC.RoadTypeConfig, TC.DynamicVehicleConfig = orig
+
+
+def write_crops(root, n=CLS_CROPS):
+    """`n` seeded 224 x 224 crops named `<id>_<line>_<d|s>.png` (half
+    moving), and their CSVs: train.csv lists all, val.csv the first
+    half."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.data.kitti import write_png
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(2)
+    rows = []
+    for i in range(n):
+        coarse = rng.randint(0, 256, (16, 16, 3))
+        img = np.repeat(np.repeat(coarse, 14, 0), 14, 1)
+        img = np.clip(img + rng.randint(-12, 13, img.shape), 0, 255)
+        name = f"{i:06d}_{i % 5}_{'d' if i % 2 else 's'}.png"
+        write_png(os.path.join(root, name), img.astype(np.uint8))
+        rows.append(f"{name},{i % 2}\n")
+    for csv, part in (("train.csv", rows), ("val.csv", rows[: n // 2])):
+        with open(os.path.join(root, csv), "w") as f:
+            f.write("".join(part))
+
+
+def classifier_crops(tmp, dev):
+    """(a) crop_images over phase 4's frames and labels (2 Cars a frame,
+    no annotations: static crops), then the seeded crop set."""
+    from eval_driving_safety_tpu_torch.cli.crop_images import \
+        main as crop_main
+    from eval_driving_safety_tpu_torch.data.kitti import load_image_u8
+    data, out = os.path.join(tmp, "kitti"), os.path.join(tmp, "cls_kitti")
+    csv = os.path.join(tmp, "cls_kitti.csv")
+    t, _, log_out = run_cli(["--image_dir", os.path.join(data, "image_2"),
+                             "--label_dir", os.path.join(data, "label_2"),
+                             "--out_dir", out, "--csv", csv, "--device",
+                             str(dev)], crop_main)
+    names = sorted(os.listdir(out))
+    want = [f"{fid}_{i}_s.png" for fid in SRCNN_IDS for i in range(2)]
+    check(names == want, f"crop_images wrote {names}")
+    with open(csv) as f:
+        check(f.read() == "".join(f"{n},0\n" for n in want),
+              "crop_images CSV")
+    for n in names:
+        img = load_image_u8(os.path.join(out, n))
+        check(img.shape == (224, 224, 3) and img.std() > 0, f"crop {n}")
+    write_crops(os.path.join(tmp, "cls_crops"))
+    return {"crop_images_s": t, "kitti_crops": len(names)}
+
+
+def classifier_train_validate(tmp, dev, size=None):
+    """(b) train_classifier for each task at batch 32, 5 epochs (the
+    first `ckpt_every`), on the seeded crops: finite losses, validation
+    every 2 epochs, an epoch5/ checkpoint whose backbone equals its seeded
+    init bit for bit and whose head moved; (c) validate_classifier on each
+    checkpoint. No port kernel."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli import train_classifier as TC
+    from eval_driving_safety_tpu_torch.cli.validate_classifier import \
+        main as validate_main
+    from eval_driving_safety_tpu_torch.models.classifiers import \
+        make_classifier
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+    crops = os.path.join(tmp, "cls_crops")
+    rec = {}
+    _cuda.reset_launches()
+    with classifier_size(size):
+        for task in CLS_TASKS:
+            ck = os.path.join(tmp, "cls_" + task)
+            t, _, out = run_cli([
+                "--task", task, "--image_dir", crops, "--train_csv",
+                os.path.join(crops, "train.csv"), "--val_csv",
+                os.path.join(crops, "val.csv"), "--epochs", str(CLS_EPOCHS),
+                "--batch", str(CLS_BATCH), "--ckpt_dir", ck, "--device",
+                str(dev)], TC.main)
+            losses = [float(v) for v in re.findall(
+                rf"epoch \d+/{CLS_EPOCHS}: loss (\S+)", out)]
+            check(len(losses) == CLS_EPOCHS
+                  and all(map(math.isfinite, losses)),
+                  f"{task} training losses {losses}")
+            val = [float(v) for v in re.findall(r"val accuracy: (\S+)", out)]
+            check(len(val) == CLS_EPOCHS // 2, f"{task} validations {val}")
+            path = os.path.join(ck, f"epoch{CLS_EPOCHS}")
+            check(os.listdir(ck) == [f"epoch{CLS_EPOCHS}"],
+                  f"{task} checkpoints {os.listdir(ck)}")
+            saved = restore_checkpoint(path)
+            check(saved["epoch"] == CLS_EPOCHS
+                  and saved["opt_state"]["count"] == CLS_EPOCHS * (
+                      CLS_CROPS // CLS_BATCH), f"{task} checkpoint")
+            cfg = TC.task_config(task)
+            model = make_classifier(task, cfg)
+            init = model.init_weights(0).state_dict()
+            for k, v in init.items():
+                same = torch.equal(saved["params"][k], v)
+                check(same != (k.split(".")[0] in model.head_names),
+                      f"{task} {k}: the backbone changed or the head did "
+                      "not")
+            del model, init, saved
+            tv, _, vout = run_cli([
+                "--task", task, "--image_dir", crops, "--val_csv",
+                os.path.join(crops, "val.csv"), "--ckpt", path, "--device",
+                str(dev)], validate_main)
+            m = re.search(r"accuracy: (\S+) \((\d+)/(\d+)\)", vout)
+            check(m and int(m.group(3)) == CLS_CROPS // 2
+                  and vout.count("  class ") == 2, f"{task} validate {vout}")
+            rec[task] = {"train_s": t, "epoch_losses": losses,
+                         "val_accuracy": val, "validate_s": tv,
+                         "validate_accuracy": float(m.group(1))}
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"the classifier CLIs launched port kernels: {launches}")
+    return rec, launches
+
+
+def planted_classifiers(tmp, size=None):
+    """Checkpoint directories of both classifiers (seeded, on the CPU)
+    with the last layer planted over phase 4's frames: its kernel scaled
+    so that the logits span 8, its bias in the middle of their widest gap,
+    so every score lies far from 0.5 and both outcomes occur. Returns
+    {task: path}, the frames and their labels."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli import train_classifier as TC
+    from eval_driving_safety_tpu_torch.cli.classify_split import \
+        frame_scores
+    from eval_driving_safety_tpu_torch.data.kitti import (load_image_u8,
+                                                          read_label)
+    from eval_driving_safety_tpu_torch.models.classifiers import (
+        make_classifier, make_eval_step)
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        save_checkpoint
+    data = os.path.join(tmp, "kitti")
+    frames = [torch.from_numpy(load_image_u8(os.path.join(
+        data, "image_2", fid + ".png"))).float() / 255 for fid in SRCNN_IDS]
+    objs = [read_label(os.path.join(data, "label_2", fid + ".txt"))
+            for fid in SRCNN_IDS]
+    paths = {}
+    with classifier_size(size):
+        for seed, task in enumerate(CLS_TASKS, start=1):
+            cfg = TC.task_config(task)
+            model = make_classifier(task, cfg).init_weights(seed).eval()
+            step = (make_eval_step(model), cfg)
+            probs = []
+            for img, o in zip(frames, objs):
+                road, dyn = frame_scores(
+                    img, o, step if task == "road_type" else None,
+                    step if task == "dynamic_vehicle" else None)
+                probs += [road] if task == "road_type" else dyn
+            p = np.asarray(probs, np.float64)
+            logits = np.log(p / (1 - p))
+            scale = 8.0 / (logits.max() - logits.min())
+            logits = np.sort(logits * scale)
+            i = int(np.argmax(np.diff(logits)))
+            last = model.head if task == "road_type" else model.fc2
+            with torch.no_grad():
+                last.weight.mul_(scale)
+                last.bias.sub_((logits[i] + logits[i + 1]) / 2)
+            paths[task] = os.path.join(tmp, "cls_planted", task)
+            save_checkpoint(paths[task], {"params": model.state_dict()})
+    return paths, frames, objs
+
+
+def classify_split_card_vs_cpu(tmp, dev, size=None):
+    """(d) classify_split over phase 4's frames with the planted
+    checkpoints, on the card and on the CPU: the same files byte for
+    byte, both buckets and both codes, every score within 1e-4; no port
+    kernel. Returns the planted paths and the card run's time."""
+    from eval_driving_safety_tpu_torch.cli.classify_split import (
+        frame_scores, main as classify_main)
+    from eval_driving_safety_tpu_torch.cli.common import load_classifier
+    from eval_driving_safety_tpu_torch.cli.train_classifier import \
+        task_config
+    from eval_driving_safety_tpu_torch.models.classifiers import \
+        make_eval_step
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    paths, frames, objs = planted_classifiers(tmp, size)
+    runs = {}
+    _cuda.reset_launches()
+    with classifier_size(size):
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            out_dir = os.path.join(tmp, f"cls_split_{name}")
+            t, _, out = run_cli(["--data_path", os.path.join(tmp, "kitti"),
+                                 "--road_ckpt", paths["road_type"],
+                                 "--dyn_ckpt", paths["dynamic_vehicle"],
+                                 "--out_dir", out_dir, "--device", str(d)],
+                                classify_main)
+            runs[name] = {"run_s": t, "files": png_dir_bytes(out_dir)}
+        card, cpu = runs["card"]["files"], runs["cpu"]["files"]
+        check(card == cpu, "classify_split: the card's folders differ from "
+              "the CPU's")
+        codes = "".join(v.decode() for k, v in card.items()
+                        if "annotation" in k)
+        check({k.split(os.sep)[0] for k in card} == {
+            "road_dynamic_label", "road_dynamic_annotation",
+            "dynamic_label", "dynamic_annotation"} and set(codes) >= {
+            "0", "1"}, f"classify_split outcomes {sorted(card)} {codes!r}")
+        steps = {}
+        for d in (dev, "cpu"):
+            steps[str(d)] = [
+                (make_eval_step(load_classifier(t, task_config(t), paths[t],
+                                                d)), task_config(t))
+                for t in CLS_TASKS]
+        err = 0.0
+        for img, o in zip(frames, objs):
+            got = [frame_scores(img.to(dev), o, *steps[str(dev)])]
+            want = [frame_scores(img, o, *steps["cpu"])]
+            for (r1, d1), (r2, d2) in zip(got, want):
+                err = max(err, abs(r1 - r2), *(abs(a - b)
+                                               for a, b in zip(d1, d2)))
+        check(err <= 1e-4, f"classify_split scores card vs cpu: {err:.3g}")
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"classify_split launched port kernels: {launches}")
+    return paths, {"card_run_s": runs["card"]["run_s"],
+                   "cpu_run_s": runs["cpu"]["run_s"],
+                   "max_score_err": err, "files": len(card)}
+
+
+def classifier_step_card_vs_cpu(dev, size=None):
+    """(e) One fp32 train step of each classifier (TF32 off) on the card
+    and on the CPU: the same seeded weights, 8 seeded inputs and the same
+    dropout mask; the loss within 1e-4 relative, the head's gradients
+    within 1e-3 of their largest, no port kernel."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli import train_classifier as TC
+    from eval_driving_safety_tpu_torch.models.classifiers import (
+        make_classifier, make_train_state, make_train_step)
+    rec = {}
+    with classifier_size(size):
+        for task in CLS_TASKS:
+            cfg = TC.task_config(task)
+            sd = make_classifier(task, cfg).init_weights(2).state_dict()
+            rng = np.random.RandomState(3)
+            s = cfg.image_size
+            x = torch.from_numpy(rng.randn(8, s, s, 3).astype(np.float32))
+            y = torch.from_numpy((rng.rand(8) > 0.5).astype(np.float32))
+            width = 2048 if task == "road_type" else 4096
+            mask = torch.from_numpy(rng.rand(8, width) > cfg.dropout)
+
+            def run(device, task=task, cfg=cfg, sd=sd, x=x, y=y, mask=mask):
+                model = make_classifier(task, cfg)
+                model.load_state_dict(sd)
+                model.to(device)
+                opt = make_train_state(model, lambda n: cfg.lr)
+                loss = make_train_step(model, opt)(
+                    x.to(device), y.to(device), dropout_mask=mask)
+                return float(loss), [p.grad.cpu()
+                                     for p in model.head_parameters()]
+            card_vs_cpu(f"classifier_step_card_vs_cpu_{task}", run, {}, dev)
+            rec[task] = True
+    return rec
+
+
+def classifier_steady_state(tmp, dev, card, paths, size=None):
+    """(f) Steady state, fp32: each task's train step at batch 32 (inputs
+    on the card: the step alone) and classify_split's frame (the road
+    score of the full frame, its two crops scored as one batch, as the CLI
+    runs it on a decoded frame on the card): steps and frames per
+    second, peak memory, a profile of one (kernel time, busy share, top
+    kernels)."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.cli import train_classifier as TC
+    from eval_driving_safety_tpu_torch.cli.classify_split import \
+        frame_scores
+    from eval_driving_safety_tpu_torch.cli.common import load_classifier
+    from eval_driving_safety_tpu_torch.models.classifiers import (
+        make_classifier, make_eval_step, make_train_state, make_train_step)
+    rec = {}
+
+    def measure(fn, n):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        per = (time.perf_counter() - t0) / n
+        peak = torch.cuda.max_memory_allocated()
+        rows, total_us, port_us = profile_kernels(fn)
+        check(port_us == 0, "a classifier path ran a port kernel")
+        return {"ms": per * 1e3, "per_s": 1.0 / per,
+                "peak_device_mem_gib": peak / 2 ** 30,
+                "profiled_kernel_ms": total_us / 1e3,
+                "kernel_launches": sum(c for _, _, c in rows),
+                "device_busy_share": (total_us / 1e3) / (per * 1e3),
+                "top_kernels_ms": [[k[:90], c, us / 1e3]
+                                   for us, k, c in rows[:8]]}
+
+    with classifier_size(size):
+        for task in CLS_TASKS:
+            cfg = TC.task_config(task)
+            model = make_classifier(task, cfg).init_weights(0).to(dev)
+            step = make_train_step(model, make_train_state(
+                model, lambda n: cfg.lr))
+            rng = np.random.RandomState(4)
+            s = cfg.image_size
+            x = torch.from_numpy(rng.randn(CLS_BATCH, s, s, 3).astype(
+                np.float32)).to(dev)
+            y = torch.from_numpy((rng.rand(CLS_BATCH) > 0.5).astype(
+                np.float32)).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            r = measure(lambda: step(x, y, generator=gen), 5)
+            rec[f"{task}_train_step"] = {"batch": CLS_BATCH, **r}
+            del model, step, x
+            torch.cuda.empty_cache()
+        steps = [(make_eval_step(load_classifier(t, TC.task_config(t),
+                                                 paths[t], dev)),
+                  TC.task_config(t)) for t in CLS_TASKS]
+        from eval_driving_safety_tpu_torch.data.kitti import (load_image_u8,
+                                                              read_label)
+        data = os.path.join(tmp, "kitti")
+        img = torch.from_numpy(load_image_u8(os.path.join(
+            data, "image_2", SRCNN_IDS[0] + ".png"))).to(dev).float() / 255
+        objs = read_label(os.path.join(data, "label_2",
+                                       SRCNN_IDS[0] + ".txt"))
+        rec["classify_split_frame"] = {"vehicles": len(objs), **measure(
+            lambda: frame_scores(img, objs, *steps), 10)}
+    log(json.dumps({"classifier_steady_state": {
+        "image_size": size or 224, "dtype": "float32, TF32 off", **rec,
+        "card": card}}))
+    return rec
+
+
+def classifier_phase(tmp, dev, card, size=None):
+    """Phase 10 over phase 4's frames in `tmp`; the launches of its CLI
+    runs and their train steps."""
+    import torch
+    rec = classifier_crops(tmp, dev)
+    train, launches = classifier_train_validate(tmp, dev, size)
+    torch.cuda.empty_cache()
+    paths, split = classify_split_card_vs_cpu(tmp, dev, size)
+    classifier_step_card_vs_cpu(dev, size)
+    torch.cuda.empty_cache()
+    classifier_steady_state(tmp, dev, card, paths, size)
+    torch.cuda.empty_cache()
+    log(json.dumps({"classifier_clis": {
+        "image_size": size or 224, "batch": CLS_BATCH,
+        "epochs": CLS_EPOCHS, "crops": CLS_CROPS, **rec, **train,
+        "classify_split": split, "launches": launches}}))
+    return launches, len(CLS_TASKS) * CLS_EPOCHS * (CLS_CROPS // CLS_BATCH)
+
+
+# --------------------------------------------------------------- phase 11
+
+SRCNN_TRAIN_SAMPLED = (
+    "backbone.stem_conv.weight", "backbone.layer2_block0.Conv_1.weight",
+    "fpn.smooth1.bias", "rpn.rpn_cls.bias", "rpn.rpn_box.weight",
+    "rcnn.fc1.weight", "rcnn.cls_score.bias", "rcnn.bbox_pred.weight",
+    "rcnn.dim_orien_pred.bias", "kpts.kpts_deconv.weight",
+    "kpts.kpts_class.weight")
+
+
+def srcnn_train_cli(tmp, dev, tiny=False):
+    """(a) train_detector --detector srcnn at StereoRCNNConfig() fp32 over
+    phase 4's two frames: 2 epochs with a checkpoint each, then a resumed
+    third; finite losses, an `uncert` that moves, FrozenBatchNorm
+    statistics bit for bit at their seeded init, no port kernel; then the
+    srcnn attack and predict CLIs on the last checkpoint. Returns the
+    launches and the training steps."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.cli.train_detector import \
+        main as train_main
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+    ck = os.path.join(tmp, "srcnn_ckpts")
+    common = ["--data_path", os.path.join(tmp, "kitti"), "--detector",
+              "srcnn", "--device", str(dev), "--ckpt_every", "1",
+              "--ckpt_dir", ck] + (["--tiny"] if tiny else [])
+    _cuda.reset_launches()
+    t1, _, out1 = run_cli(common + ["--epochs", "2"], train_main)
+    t2, _, out2 = run_cli(common + ["--epochs", "1", "--resume"], train_main)
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"Stereo R-CNN training launched port kernels: {launches}")
+    check(f"resumed from {os.path.join(ck, 'epoch2')} (epoch 2)" in out2,
+          "srcnn training did not resume")
+    epochs = re.findall(r"epoch (\d+): loss (\S+) uncert (\[[^\]]*\])",
+                        out1 + out2)
+    check([int(e) for e, _, _ in epochs] == [1, 2, 3]
+          and all(math.isfinite(float(v)) for _, v, _ in epochs),
+          f"srcnn training epochs {epochs}")
+    check(sorted(os.listdir(ck)) == ["epoch1", "epoch2", "epoch3"],
+          f"srcnn checkpoints {os.listdir(ck)}")
+    cks = [restore_checkpoint(os.path.join(ck, f"epoch{e}"))
+           for e in (1, 2, 3)]
+    steps = 3 * len(SRCNN_IDS)
+    check(cks[2]["opt_state"]["count"] == steps, "srcnn optimizer count")
+    check(all(c["uncert"].abs().min() > 0 for c in cks)
+          and not torch.equal(cks[0]["uncert"], cks[2]["uncert"]),
+          f"uncert did not move: {[c['uncert'].tolist() for c in cks]}")
+    init = StereoRCNN(srcnn_cfg(tiny, "float32")).init_weights(0)
+    stats = 0
+    for k, v in init.state_dict().items():
+        if k.endswith((".mean", ".var")):
+            stats += 1
+            check(all(torch.equal(c["params"][k], v) for c in cks),
+                  f"srcnn training wrote the statistic {k}")
+    w = "rcnn.cls_score.weight"
+    check(not torch.equal(cks[2]["params"][w], init.state_dict()[w]),
+          "srcnn training did not move the weights")
+    uncerts = [c["uncert"].tolist() for c in cks]
+    del cks, init
+    last = os.path.join(ck, "epoch3")
+    ta, losses, out = run_cli([
+        "--data_path", os.path.join(tmp, "kitti"), "--detector", "srcnn",
+        "--iter", "1", "--debug", "--debugnum", "1", "--device", str(dev),
+        "--ckpt", last, "--out_prefix",
+        os.path.join(tmp, "srcnn_trained_adv", "p")]
+        + (["--tiny"] if tiny else []))
+    check(f"loaded Stereo R-CNN weights from {last}, uncert" in out
+          and len(losses) == 1 and all(map(math.isfinite, losses[0])),
+          f"the srcnn attack on the trained checkpoint: {out[-300:]}")
+    res = os.path.join(tmp, "srcnn_trained_pred")
+    tp, _, out = run_cli([
+        "--data_path", os.path.join(tmp, "kitti"), "--detector", "srcnn",
+        "--debug", "--debugnum", "1", "--device", str(dev), "--ckpt", last,
+        "--result_dir", res] + (["--tiny"] if tiny else []), predict_main)
+    predict_layout_ok(res, SRCNN_IDS[:1], srcnn_cfg(tiny))
+    log(json.dumps({"srcnn_train_cli": {
+        "config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} float32",
+        "frames": len(SRCNN_IDS), "epochs": 3, "steps": steps,
+        "run_s": t1, "resume_run_s": t2,
+        "epoch_losses": [float(v) for _, v, _ in epochs],
+        "checkpoint_uncert": uncerts,
+        "frozen_statistics_checked": stats, "attack_s": ta,
+        "predict_s": tp, "launches": launches}}))
+    return launches, steps
+
+
+def tiny_srcnn_train_card_vs_cpu(tmp, dev):
+    """(b) One training step of the tiny Stereo R-CNN in fp32 (TF32 off)
+    on the card and on the CPU: the same weights, u8 frame, gt and draws;
+    the total loss within 1e-4 relative and sampled parameters' clipped
+    gradients within 1e-3 of their largest, no port kernel."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.train_detector import (
+        make_detector_optimizer, make_srcnn_train_step, warmup_cosine_decay)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8)
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, make_gt_batch)
+    cfg = srcnn_cfg(True, "float32")
+    sd = StereoRCNN(cfg).init_weights(3).state_dict()
+    b = prepare_srcnn_batch_u8([KittiStereoDataset(os.path.join(
+        tmp, "kitti")).get(0)], cfg.input)
+    gt = make_gt_batch(b["objects"], b["calibs"], cfg,
+                       image_scale=b["scales"])
+    model0 = StereoRCNN(cfg)
+    draws = model0.sample_draws(1, torch.Generator().manual_seed(7))
+
+    def run(device):
+        model = StereoRCNN(cfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        uncert = torch.nn.Parameter(torch.zeros(6, device=device))
+        opt = make_detector_optimizer(
+            [*model.named_parameters(), ("uncert", uncert)],
+            warmup_cosine_decay(1e-3, 1, 10))
+        step = make_srcnn_train_step(model, uncert, opt, cfg, device)
+        put = lambda a: torch.as_tensor(a).to(device)
+        total, _ = step(put(b["im_left_u8"]), put(b["im_right_u8"]),
+                        {k: put(b[k]) for k in ("ih", "iw", "den_h",
+                                                "den_w", "wmask", "c")},
+                        {k: v.to(device) for k, v in gt.items()},
+                        type(draws)(*(d.to(device) for d in draws)))
+        params = dict(model.named_parameters())
+        return float(total), [params[k].grad.cpu()
+                              for k in SRCNN_TRAIN_SAMPLED] + [
+                                  uncert.grad.cpu()]
+    card_vs_cpu("tiny_srcnn_train_card_vs_cpu", run, {}, dev)
+
+
+def srcnn_train_steady_state(tmp, dev, card, tiny=False):
+    """(c) The steady-state Stereo R-CNN training step at
+    StereoRCNNConfig() fp32 (TF32 off) on phase 4's first frame, as the
+    CLI runs it (u8 ingest, fresh draws, the joint step over the network
+    and `uncert`): steps per second, peak memory and a profile of one
+    step (kernel time, busy share, top kernels)."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.common import use_srcnn_precision
+    from eval_driving_safety_tpu_torch.cli.train_detector import (
+        make_detector_optimizer, make_srcnn_train_step, warmup_cosine_decay)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8)
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, make_gt_batch)
+    cfg = srcnn_cfg(tiny, "float32")
+    use_srcnn_precision(cfg)
+    model = StereoRCNN(cfg).init_weights(0).to(dev)
+    uncert = torch.nn.Parameter(torch.zeros(6, device=dev))
+    opt = make_detector_optimizer(
+        [*model.named_parameters(), ("uncert", uncert)],
+        warmup_cosine_decay(1e-3, 200, 10000))
+    step = make_srcnn_train_step(model, uncert, opt, cfg, dev)
+    b = prepare_srcnn_batch_u8([KittiStereoDataset(os.path.join(
+        tmp, "kitti")).get(0)], cfg.input)
+    gt = make_gt_batch(b["objects"], b["calibs"], cfg,
+                       image_scale=b["scales"], device=dev)
+    put = lambda a: torch.as_tensor(a).to(dev)
+    il, ir = put(b["im_left_u8"]), put(b["im_right_u8"])
+    w = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w", "wmask", "c")}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    totals = []
+
+    def one():
+        totals.append(step(il, ir, w, gt, model.sample_draws(1, gen))[0])
+
+    n = 3
+    one()
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one()
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    rows, total_us, port_us = profile_kernels(one)
+    check(all(math.isfinite(float(t)) for t in totals),
+          "srcnn training steady-state losses")
+    check(port_us == 0, "the srcnn training step ran a port kernel")
+    rec = {"config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} float32, "
+                     "TF32 off", "batch": 1, "step_ms": per * 1e3,
+           "steps_per_s": 1.0 / per, "peak_device_mem_gib": peak / 2 ** 30,
+           "profiled_kernel_ms": total_us / 1e3,
+           "kernel_launches_per_step": sum(c for _, _, c in rows),
+           "device_busy_share": (total_us / 1e3) / (per * 1e3),
+           "top_kernels_ms": [[k[:90], c, us / 1e3]
+                              for us, k, c in rows[:16]],
+           "card": card}
+    log(json.dumps({"srcnn_train_step": rec}))
+    return rec
+
+
+def upstream_srcnn_state_dict(cfg, seed=0):
+    """A seeded random Stereo R-CNN state dict at `cfg`'s widths in the
+    upstream published layout: RCNN_layer{0..4} (torch BatchNorm weight,
+    bias, running statistics and num_batches_tracked), the RCNN_toplayer /
+    latlayer / smooth FPN, RCNN_rpn with class-major scores, RCNN_top's
+    two full-extent convs, the Linear heads, RCNN_kpts' convs at even
+    indices (ReLUs between) and its 2x2 transposed conv, and kpts_class.
+    Kernels are scaled by 1/sqrt(fan in), so activations stay finite."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def conv(name, cout, cin, k, bias=True):
+        sd[f"{name}.weight"] = rand(cout, cin, k, k) / math.sqrt(cin * k * k)
+        if bias:
+            sd[f"{name}.bias"] = 0.01 * rand(cout)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.rand(c, generator=g)
+        sd[f"{name}.bias"] = 0.01 * rand(c)
+        sd[f"{name}.running_mean"] = 0.01 * rand(c)
+        sd[f"{name}.running_var"] = 1.0 + 0.1 * torch.rand(c, generator=g)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    wid = cfg.backbone_width
+    conv("RCNN_layer0.0", wid, 3, 7, bias=False)
+    bn("RCNN_layer0.1", wid)
+    cin = wid
+    for stage, blocks in enumerate(cfg.backbone_blocks, start=1):
+        width = wid * 2 ** (stage - 1)
+        for blk in range(blocks):
+            pre = f"RCNN_layer{stage}.{blk}."
+            for i, (co, ci, k) in enumerate(((width, cin, 1),
+                                             (width, width, 3),
+                                             (4 * width, width, 1)), 1):
+                conv(f"{pre}conv{i}", co, ci, k, bias=False)
+                bn(f"{pre}bn{i}", co)
+            if blk == 0:
+                conv(pre + "downsample.0", 4 * width, cin, 1, bias=False)
+                bn(pre + "downsample.1", 4 * width)
+            cin = 4 * width
+    ch, c5 = cfg.fpn_channels, 32 * wid
+    for name, ci, k in (("toplayer", c5, 1), ("latlayer1", c5 // 2, 1),
+                        ("latlayer2", c5 // 4, 1), ("latlayer3", c5 // 8, 1),
+                        ("smooth1", ch, 3), ("smooth2", ch, 3),
+                        ("smooth3", ch, 3)):
+        conv("RCNN_" + name, ch, ci, k)
+    a = len(cfg.anchor_ratios)
+    conv("RCNN_rpn.RPN_Conv", 512, ch, 3)
+    conv("RCNN_rpn.RPN_cls_score", 2 * a, 1024, 1)
+    conv("RCNN_rpn.RPN_bbox_pred_left_right", 6 * a, 1024, 1)
+    conv("RCNN_top.0", 1024, 2 * ch, cfg.pooling_size)
+    conv("RCNN_top.2", 1024, 1024, 1)
+    for name, o in (("RCNN_cls_score", cfg.num_classes),
+                    ("RCNN_bbox_pred", 6 * cfg.num_classes),
+                    ("RCNN_dim_orien_pred", 5 * cfg.num_classes)):
+        sd[f"{name}.weight"] = rand(o, 1024) / 32.0
+        sd[f"{name}.bias"] = 0.01 * rand(o)
+    for i in range(cfg.kpts_convs):
+        conv(f"RCNN_kpts.{2 * i}", 256, ch if i == 0 else 256, 3)
+    n = 2 * cfg.kpts_convs
+    sd[f"RCNN_kpts.{n}.weight"] = rand(256, 256, 2, 2) / 32.0
+    sd[f"RCNN_kpts.{n}.bias"] = 0.01 * rand(256)
+    conv("kpts_class", 6, 256, 1)
+    return sd
+
+
+def published_srcnn_clis(tmp, dev, tiny=False):
+    """(d) A random Stereo R-CNN state dict in the upstream published
+    layout (`{"model": {"module.<key>": tensor}, "uncert": (6,)}`),
+    written without JAX, read by the srcnn attack, predict and patch CLIs
+    with 0 unmapped keys; the imported weights equal the file's (the RPN's
+    scores reordered anchor-major, RCNN_top's first conv as a Dense over
+    the NHWC flatten, the transposed conv as it is). No port kernel."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        main as patch_main
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.utils.torch_import import \
+        load_stereo_rcnn_checkpoint
+    cfg = srcnn_cfg(tiny, "float32")
+    sd = upstream_srcnn_state_dict(cfg, seed=5)
+    uncert = torch.tensor([-1.0, -0.8, 0.1, 0.2, -0.3, 0.4])
+    path = os.path.join(tmp, "stereo_rcnn_published.pth")
+    torch.save({"model": {"module." + k: v for k, v in sd.items()},
+                "uncert": uncert, "epoch": 12}, path)
+    model, imported, got_uncert = load_stereo_rcnn_checkpoint(path, cfg)
+    check(imported["unmapped"] == [] and torch.equal(got_uncert, uncert),
+          f"published import: unmapped {imported['unmapped'][:8]}")
+    mine = model.state_dict()
+    a = len(cfg.anchor_ratios)
+    perm = [k * a + i for i in range(a) for k in range(2)]
+    w = sd["RCNN_top.0.weight"]
+    check(torch.equal(mine["rpn.rpn_cls.bias"],
+                      sd["RCNN_rpn.RPN_cls_score.bias"][perm])
+          and torch.equal(mine["rcnn.fc1.weight"],
+                          w.permute(0, 2, 3, 1).reshape(w.shape[0], -1))
+          and torch.equal(mine["kpts.kpts_deconv.weight"],
+                          sd[f"RCNN_kpts.{2 * cfg.kpts_convs}.weight"]),
+          "published import: weights not laid out as the file's")
+    del model, mine
+    base = ["--data_path", os.path.join(tmp, "kitti"), "--detector",
+            "srcnn", "--debug", "--debugnum", "1", "--device", str(dev),
+            "--ckpt", path] + (["--tiny"] if tiny else [])
+    _cuda.reset_launches()
+    runs = {}
+    for name, main, extra in (
+            ("attack", None, ["--iter", "1", "--out_prefix",
+                              os.path.join(tmp, "srcnn_pub_adv", "p")]),
+            ("predict", predict_main,
+             ["--result_dir", os.path.join(tmp, "srcnn_pub_pred")]),
+            ("patch", patch_main,
+             ["--epochs", "1", "--iters", "1", "--save_dir",
+              os.path.join(tmp, "srcnn_pub_patch")])):
+        t, _, out = run_cli(base + extra, main)
+        check("kpts convs=4, unmapped=0)" in out and "WARNING: " not in
+              out.replace("WARNING: no --ckpt", ""),
+              f"published .pth through the {name} CLI: {out[-300:]}")
+        runs[name + "_s"] = t
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"the published-checkpoint CLIs launched {launches}")
+    log(json.dumps({"published_srcnn_clis": {
+        "config": f"{'tiny' if tiny else 'StereoRCNNConfig()'} widths",
+        "keys": len(sd), "unmapped": 0, **runs, "launches": launches}}))
+
+
+def srcnn_train_phase(tmp, dev, card, tiny=False):
+    """Phase 11 over phase 4's frames in `tmp`; the launches of its
+    training CLI runs and their steps."""
+    import torch
+    launches, steps = srcnn_train_cli(tmp, dev, tiny)
+    torch.cuda.empty_cache()
+    tiny_srcnn_train_card_vs_cpu(tmp, dev)
+    srcnn_train_steady_state(tmp, dev, card, tiny)
+    torch.cuda.empty_cache()
+    published_srcnn_clis(tmp, dev, tiny)
+    torch.cuda.empty_cache()
+    return launches, steps
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2923,6 +3656,14 @@ def main():
     full = DSGNConfig.full()
 
     # 1. the card; build
+    t_start = time.perf_counter()
+    phase_s, clock = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2935,6 +3676,7 @@ def main():
                     "nvcc": _cuda.nvcc_path()}))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lap("1_build")
 
     # 2. kernels vs plain versions at the paper-scale shapes
     per, wgrad = {}, {}
@@ -2954,10 +3696,12 @@ def main():
     check_depthconv_edges(dev)
     check_depthconv_wgrad_edges(dev)
     check_psv_edges(dev)
+    lap("2_kernels")
 
     # 3. tiny model: card vs CPU
     tiny_card_vs_cpu(dev)
     torch.cuda.empty_cache()
+    lap("3_tiny_card_vs_cpu")
 
     # 4. the slice at paper scale; 6. predict over its attacked frames
     # (in its directory), then the attack's steady state; 7. the patch
@@ -2967,12 +3711,14 @@ def main():
     fwd_shapes = {(k, s) for k, s in phase2 if k in PREDICT_PER_PAIR}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, shapes, widths, n_iters = the_slice(tmp, card, dev)
+        lap("4_attack_cli")
         p_launches = predict_cli(tmp, dev, fwd_shapes)
         predict_patch_modes(tmp, dev)
         decode_ms = decode_card_vs_cpu(tmp, full, dev)
         torch.cuda.empty_cache()
         predict_steady_state(tmp, dev, card, decode_ms)
         torch.cuda.empty_cache()
+        lap("6_predict")
         patch_launches, patch_steps = patch_cli(tmp, dev, phase2)
         tiny_patch_card_vs_cpu(dev)
         patch_steady_state(tmp, dev, card)
@@ -2982,14 +3728,24 @@ def main():
         torch.cuda.empty_cache()
         compat_steady_state(tar, dev, card)
         torch.cuda.empty_cache()
+        lap("7_patch_compat")
         # 8. the Stereo R-CNN attack over the same frames; 9. its predict
         # over the attacked sweep and the clean frames, and its patch
         # attack
         srcnn_launches = stereo_rcnn_phase(tmp, dev, card)
+        lap("8_srcnn_attack")
         sp_launches, sp_pairs, spatch_launches, spatch_steps = \
             srcnn_predict_patch_phase(tmp, dev, card)
+        lap("9_srcnn_predict_patch")
+        # 10. the scene classifiers over the same frames; 11. Stereo
+        # R-CNN training on them and the published checkpoint's layout
+        cls_launches, cls_steps = classifier_phase(tmp, dev, card)
+        lap("10_classifiers")
+        st_launches, st_steps = srcnn_train_phase(tmp, dev, card)
+        lap("11_srcnn_train")
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
+    lap("4_attack_steady_state")
 
     # the slice launched each kernel at exactly the shapes phase 2 timed
     # (all in the model's dtype), the same number of times per iteration
@@ -3027,6 +3783,7 @@ def main():
                                          if k in PREDICT_PER_PAIR})
     torch.cuda.empty_cache()
     train_steady_state(cfg_t, dev, card)
+    lap("5_training")
     log(json.dumps({"kernel_detail_train": detail_rows(timed_t, t_counts)}))
     rec_t = per_iteration(timed_t, t_counts, cfg_t.dtype)
     log(json.dumps({"kernels_train_step": {
@@ -3085,10 +3842,17 @@ def main():
             "launches_per_srcnn_predict_pair": sp_launches[name] / sp_pairs,
             "launches_per_srcnn_patch_step":
                 spatch_launches[name] / spatch_steps,
+            # phase 10: the classifiers' train steps (and their other
+            # CLIs); phase 11: Stereo R-CNN training. None of them
+            "launches_per_classifier_train_step":
+                cls_launches[name] / cls_steps,
+            "launches_per_srcnn_train_step": st_launches[name] / st_steps,
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
             "dtype": dt})
+    log(json.dumps({"phase_s": phase_s,
+                    "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

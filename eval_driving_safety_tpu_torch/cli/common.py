@@ -156,12 +156,13 @@ def make_srcnn_cfg(args, default_bf16: bool = False,
 
 def make_srcnn_model(args, cfg, device):
     """The Stereo R-CNN the attack runs, frozen, and its loss weights
-    `uncert` (6,): `--ckpt` is a checkpoint directory of the port
-    (utils.checkpoint; `params`, and `uncert` where it has one) or a
-    `torch.save`d state dict of the port's StereoRCNN (utils.from_flax
-    makes one from Flax weights); without it a seeded fresh init, and
-    `uncert` is 0. In bf16 the kernels are cast once
-    (`cast_matmul_params`)."""
+    `uncert` (6,): `--ckpt` is the published checkpoint (`.pth` or
+    `.tar`, upstream layout: its weights, its keypoint conv count and its
+    `uncert`), a checkpoint directory of the port (utils.checkpoint;
+    `params`, and `uncert` where it has one) or a `torch.save`d state
+    dict of the port's StereoRCNN (utils.from_flax makes one from Flax
+    weights); without it a seeded fresh init, and `uncert` is 0. In bf16
+    the kernels are cast once (`cast_matmul_params`)."""
     import torch
 
     from eval_driving_safety_tpu_torch.models.common import \
@@ -169,15 +170,22 @@ def make_srcnn_model(args, cfg, device):
     from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
     from eval_driving_safety_tpu_torch.utils.checkpoint import (
         is_checkpoint, restore_checkpoint)
-    model = StereoRCNN(cfg)
     uncert = torch.zeros(6)
     ckpt = args.ckpt
     if ckpt and ckpt.endswith((".tar", ".pth")):
-        raise SystemExit(
-            f"{ckpt}: the published Stereo R-CNN checkpoint is not read by "
-            "this package yet (ROADMAP item 13); pass a state dict of its "
-            "StereoRCNN or a checkpoint directory")
-    if ckpt:
+        from eval_driving_safety_tpu_torch.utils.torch_import import \
+            load_stereo_rcnn_checkpoint
+        model, imported, file_uncert = load_stereo_rcnn_checkpoint(ckpt, cfg)
+        if imported["unmapped"]:
+            log(f"WARNING: {len(imported['unmapped'])} torch keys "
+                f"unmapped: {imported['unmapped'][:8]}...")
+        if file_uncert is not None:
+            uncert = file_uncert
+        log(f"imported torch checkpoint {ckpt} "
+            f"(kpts convs={imported['num_kpts_convs']}, "
+            f"unmapped={len(imported['unmapped'])})")
+    elif ckpt:
+        model = StereoRCNN(cfg)
         sd = None
         if os.path.isdir(ckpt):
             if is_checkpoint(ckpt):
@@ -198,7 +206,7 @@ def make_srcnn_model(args, cfg, device):
         log(f"loaded Stereo R-CNN weights from {ckpt}"
             + (f", uncert {uncert.tolist()}" if uncert.any() else ""))
     else:
-        model.init_weights(seed=0)
+        model = StereoRCNN(cfg).init_weights(seed=0)
         log("WARNING: no --ckpt given; using randomly initialized weights")
     model = model.to(device).requires_grad_(False).eval()
     if cfg.dtype == "bfloat16":
@@ -206,13 +214,40 @@ def make_srcnn_model(args, cfg, device):
     return model, uncert.to(device)
 
 
-def use_srcnn_precision(cfg) -> None:
-    """A float32 Stereo R-CNN computes in float32: TF32 off in cuDNN's
-    convs and cuBLAS's products (bf16 configs leave the flags alone)."""
+def load_classifier(task: str, cfg, ckpt: str, device):
+    """The scene classifier of `task` at `cfg`, frozen and in eval mode,
+    with the `params` of `ckpt`, an epoch directory of
+    cli.train_classifier."""
+    from eval_driving_safety_tpu_torch.models.classifiers import \
+        make_classifier
+    from eval_driving_safety_tpu_torch.utils.checkpoint import (
+        is_checkpoint, restore_checkpoint)
+    model = make_classifier(task, cfg)
+    sd = restore_checkpoint(ckpt).get("params") if is_checkpoint(ckpt) \
+        else None
+    want = model.state_dict()
+    if not isinstance(sd, dict) or set(sd) != set(want) or any(
+            sd[k].shape != v.shape for k, v in want.items()):
+        raise SystemExit(
+            f"{ckpt} is not a checkpoint directory of this package's {task} "
+            f"classifier at image size {cfg.image_size}")
+    model.load_state_dict(sd)
+    return model.to(device).requires_grad_(False).eval()
+
+
+def use_fp32_precision() -> None:
+    """Compute float32 in float32: TF32 off in cuDNN's convs and cuBLAS's
+    products."""
     import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def use_srcnn_precision(cfg) -> None:
+    """A float32 Stereo R-CNN computes in float32 (bf16 configs leave the
+    TF32 flags alone)."""
     if cfg.dtype == "float32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        use_fp32_precision()
 
 
 def use_deterministic_kernels(device) -> None:

@@ -1,19 +1,30 @@
-"""Detector training CLI: DSGN on one CUDA card.
+"""Detector training CLI: DSGN and Stereo R-CNN on one CUDA card.
 
-Counterpart of `eval_driving_safety_tpu.cli.train_detector --detector
-dsgn`, with the same flags, optimizer, schedule and checkpoint layout:
+Counterpart of `eval_driving_safety_tpu.cli.train_detector`, with the
+same flags, optimizer, schedule and checkpoint layout:
 `{ckpt_dir}/epoch{N}/` every `--ckpt_every` epochs and after the last,
 written by utils.checkpoint with `torch.save` (the JAX trainer's orbax
-directories are not read). The model is `DSGNConfig()` (`--tiny`:
-`DSGNConfig.tiny()`), initialised from `--seed`; the objective is
-`dsgn_total_loss`, whose disparity term trains only with `--depth_dir`
-(depth maps from cli.make_depth_gt). A last batch of fewer than
-`--batch` frames is dropped.
+directories are not read). A last batch of fewer than `--batch` frames
+is dropped.
+* dsgn: `DSGNConfig()` (`--tiny`: `DSGNConfig.tiny()`), initialised from
+  `--seed`; the objective is `dsgn_total_loss`, whose disparity term
+  trains only with `--depth_dir` (depth maps from cli.make_depth_gt).
+* srcnn: `StereoRCNNConfig()` in float32 with TF32 off (`--tiny`: the
+  tiny config), initialised from `--seed`; the network and the six loss
+  weights `uncert` (from 0) descend `total_attack_loss` together, the
+  samplers drawing afresh at every step from a generator seeded
+  `--seed` + 1. Frames go up as u8 and are resized on the card exactly
+  as the attack ingests them. Checkpoints hold `params`, `uncert`,
+  `opt_state` and `epoch`; the attack, predict and patch CLIs take them
+  as `--ckpt`.
 
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.train_detector --detector dsgn \\
       --data_path KITTI/object/training --split_file train.txt \\
       --depth_dir depth_gt --epochs 20 --batch 1 --ckpt_dir ckpts/dsgn
+  python -m eval_driving_safety_tpu_torch.cli.train_detector --detector srcnn \\
+      --data_path KITTI/object/training --split_file train.txt \\
+      --epochs 12 --ckpt_dir ckpts/srcnn
 """
 from __future__ import annotations
 
@@ -21,11 +32,12 @@ import argparse
 import math
 import os
 
+import numpy as np
 import torch
 
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, log, make_dataset,
-    use_deterministic_kernels)
+    use_deterministic_kernels, use_srcnn_precision)
 
 
 def parse_args(argv=None):
@@ -203,13 +215,104 @@ def run_dsgn(args):
             log(f"  checkpoint -> {path}")
 
 
+def make_srcnn_train_step(model, uncert, opt: DetectorOptimizer, cfg,
+                          device):
+    """One Stereo R-CNN training step: u8 frames and the batch's ingest
+    weights (`prepare_srcnn_batch_u8`, on the device), the gt dict and the
+    samplers' draws in; the total loss and the six terms out (tensors on
+    the device)."""
+    from eval_driving_safety_tpu_torch.data.dataset import \
+        srcnn_clean01_device
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import \
+        total_attack_loss
+    means = torch.tensor(cfg.input.pixel_means_bgr, dtype=torch.float32,
+                         device=device)
+
+    def train_step(il_u8, ir_u8, weights, gt, draws):
+        il = srcnn_clean01_device(weights, il_u8) * 255.0 - means
+        ir = srcnn_clean01_device(weights, ir_u8) * 255.0 - means
+        out = model(il, ir, gt=gt, draws=draws, mode="attack")
+        total = total_attack_loss(out.losses, uncert)
+        opt.zero_grad()
+        total.backward()
+        opt.step()
+        return total.detach(), {k: v.detach() for k, v in out.losses.items()}
+    return train_step
+
+
+def run_srcnn(args):
+    from eval_driving_safety_tpu_torch.config import StereoRCNNConfig
+    from eval_driving_safety_tpu_torch.data.dataset import \
+        prepare_srcnn_batch_u8
+    from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
+        StereoRCNN, make_gt_batch)
+    from eval_driving_safety_tpu_torch.utils.checkpoint import (
+        latest_epoch_dir, restore_checkpoint, save_checkpoint)
+    device = torch.device(args.device)
+    use_deterministic_kernels(device)
+    cfg = StereoRCNNConfig.tiny() if args.tiny else StereoRCNNConfig()
+    use_srcnn_precision(cfg)
+    model = StereoRCNN(cfg).init_weights(args.seed).to(device)
+    uncert = torch.nn.Parameter(torch.zeros(6, device=device))
+    ds = make_dataset(args)
+    ckpt_dir = args.ckpt_dir or "srcnn_ckpts"
+    sched = warmup_cosine_decay(
+        args.lr, args.warmup_steps,
+        max(args.epochs * max(len(ds) // args.batch, 1),
+            args.warmup_steps + 1))
+    opt = make_detector_optimizer(
+        [*model.named_parameters(), ("uncert", uncert)], sched)
+    start_epoch = 0
+    if args.resume:
+        newest = latest_epoch_dir(ckpt_dir)
+        if newest:
+            ck = restore_checkpoint(newest)
+            model.load_state_dict(ck["params"])
+            with torch.no_grad():
+                uncert.copy_(ck["uncert"])
+            opt.load_state_dict(ck["opt_state"])
+            start_epoch = int(ck["epoch"])
+            log(f"resumed from {newest} (epoch {start_epoch})")
+    train_step = make_srcnn_train_step(model, uncert, opt, cfg, device)
+    # fresh draws at every step, as the JAX trainer splits its key
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    def prep(samples):
+        b = prepare_srcnn_batch_u8(samples, cfg.input)
+        return b, make_gt_batch(b["objects"], b["calibs"], cfg,
+                                image_scale=b["scales"])
+
+    def put(x):
+        return torch.as_tensor(x).to(device)
+
+    for epoch in range(args.epochs):
+        losses = []
+        for b, gt in ds.batches(args.batch, drop_remainder=True,
+                                prepare=prep):
+            weights = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
+                                              "wmask", "c")}
+            total, _ = train_step(
+                put(b["im_left_u8"]), put(b["im_right_u8"]), weights,
+                {k: v.to(device) for k, v in gt.items()},
+                model.sample_draws(len(b["frame_ids"]), gen))
+            losses.append(total)
+        e = start_epoch + epoch + 1
+        mean_loss = float(torch.stack(losses).mean()) if losses else \
+            float("nan")
+        log(f"epoch {e}: loss {mean_loss:.4f} uncert "
+            f"{np.round(uncert.detach().cpu().numpy(), 3).tolist()}")
+        if e % args.ckpt_every == 0 or epoch == args.epochs - 1:
+            path = os.path.join(ckpt_dir, f"epoch{e}")
+            save_checkpoint(path, {"params": model.state_dict(),
+                                   "uncert": uncert.detach(),
+                                   "opt_state": opt.state_dict(),
+                                   "epoch": e})
+            log(f"  checkpoint -> {path}")
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.detector == "srcnn":
-        raise SystemExit("--detector srcnn is not ported yet: Stereo R-CNN "
-                         "training is ROADMAP item 13 (use "
-                         "eval_driving_safety_tpu for it)")
-    run_dsgn(args)
+    (run_dsgn if args.detector == "dsgn" else run_srcnn)(args)
 
 
 if __name__ == "__main__":

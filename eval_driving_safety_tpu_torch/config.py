@@ -1,7 +1,7 @@
-"""Configuration of the ported DSGN and Stereo R-CNN paths.
+"""Configuration of the ported DSGN, Stereo R-CNN and classifier paths.
 
-Field-for-field the DSGN, Stereo R-CNN, input, PGD and patch configs of
-the JAX package, so a configuration means the same model in both. Two fields
+Field-for-field the DSGN, Stereo R-CNN, input, PGD, patch and classifier
+configs of the JAX package, so a configuration means the same model in both. Two fields
 name the formulation of the volume ops, and their defaults differ from
 the JAX package's: there the defaults were chosen for the TPU's matrix
 unit, here
@@ -226,3 +226,36 @@ PLACEMENT_BANDS = {
     "sp_straight": (0.4, 0.6),
     "sp_right": (0.6, 0.8),
 }
+
+
+@dataclass(frozen=True)
+class RoadTypeConfig:
+    """highway (1) / street (0) classifier on full left frames: a frozen
+    ResNet-50 with a 1-unit head, BCE, Adam 1e-3 scaled by 0.1 after
+    epochs 5, 10 and 15, the dataset's own normalization."""
+    image_size: int = 224
+    mean: Tuple[float, float, float] = (0.3775, 0.3923, 0.3839)
+    std: Tuple[float, float, float] = (0.3110, 0.3154, 0.3180)
+    lr: float = 1e-3
+    lr_milestones: Tuple[int, ...] = (5, 10, 15)
+    lr_gamma: float = 0.1
+    dropout: float = 0.5
+    epochs: int = 20
+    batch_size: int = 32
+    ckpt_every: int = 5
+
+
+@dataclass(frozen=True)
+class DynamicVehicleConfig:
+    """moving (1) / static (0) classifier on square vehicle crops: frozen
+    VGG-16 features, 25088 -> 4096 -> 1, Adam 1e-6 halved after epochs 6
+    and 10. No `ckpt_every`: the training CLI saves every 5 epochs."""
+    image_size: int = 224
+    mean: Tuple[float, float, float] = (0.3091, 0.3181, 0.3248)
+    std: Tuple[float, float, float] = (0.2328, 0.2308, 0.2337)
+    lr: float = 1e-6
+    lr_halve_epochs: Tuple[int, ...] = (6, 10)
+    dropout: float = 0.1
+    epochs: int = 12
+    batch_size: int = 32
+    crop_margin: int = 4                     # crop side = max(w, h) + 4

@@ -1,14 +1,16 @@
-"""Flax -> PyTorch weight bridge for the ported DSGN and Stereo R-CNN.
+"""Flax -> PyTorch weight bridge for the ported DSGN, Stereo R-CNN and
+scene classifiers.
 
 The port's modules carry the Flax model's auto-names, so the map is
 mechanical: the path of a leaf joined with "." names the tensor, a
 `kernel` leaf becomes `weight` in PyTorch's layout, and every other leaf
 (conv `bias`, FrozenBatchNorm `scale`/`bias`/`mean`/`var`) keeps its name.
 
-DSGN kernel layouts, by rank:
+DSGN and classifier kernel layouts, by rank:
   5 (3, 3, 3, C, 1) Score3D, DHWIO -> OIDHW
   4 (kh, kw, I, O) 2D conv, HWIO -> OIHW
   3 (3, C, F) (2+1)D depth kernel, kept as it is (the fused kernel's layout)
+  2 (I, O) Dense -> (O, I)
 Stereo R-CNN kernels, by the port module that takes them: a Dense's (I, O)
 -> (O, I); a ConvTranspose's (kh, kw, I, O) -> (I, O, kh, kw) flipped in
 both spatial axes (models.common.ConvTranspose); a conv's HWIO -> OIHW.
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_KERNEL_PERM = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (0, 1, 2)}
+_KERNEL_PERM = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (0, 1, 2),
+                2: (1, 0)}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -35,7 +38,7 @@ def _flatten(tree: Mapping, prefix=()):
 def dsgn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (nested dicts of arrays, with or without the top-level
     "params" collection) -> a state dict for models.dsgn.DSGN or any of
-    its submodules."""
+    its submodules; kernels laid out by their rank."""
     tree = params["params"] if "params" in params else params
     sd = {}
     for path, leaf in _flatten(tree):
@@ -77,3 +80,18 @@ def stereo_rcnn_state_dict_from_flax(variables: Mapping,
         sd[".".join([*mods, name])] = torch.tensor(
             np.ascontiguousarray(arr))
     return sd
+
+
+def road_type_state_dict_from_flax(variables: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX RoadTypeClassifier (`ResNet_0/...`,
+    `head`) -> a state dict for models.classifiers.RoadTypeClassifier."""
+    return dsgn_state_dict_from_flax(variables)
+
+
+def dynamic_vehicle_state_dict_from_flax(variables: Mapping
+                                         ) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX DynamicVehicleClassifier
+    (`VGG16Features_0/...`, `fc1`, `fc2`) -> a state dict for
+    models.classifiers.DynamicVehicleClassifier."""
+    return dsgn_state_dict_from_flax(variables)

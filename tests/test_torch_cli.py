@@ -133,8 +133,8 @@ def test_cli_srcnn_off_grid_step_replays_in_f32(tmp_path, capsys):
 
 def test_cli_srcnn_weights_uncert_and_fp32(tmp_path, capsys):
     """--ckpt: a port checkpoint directory's params and uncert, a state
-    dict file, and the published .pth refused (ROADMAP item 13); --fp32
-    turns TF32 off."""
+    dict file, and the published .pth (its uncert; it was refused before
+    the import was ported); --fp32 turns TF32 off."""
     import torch
 
     from eval_driving_safety_tpu_torch.cli.common import make_srcnn_model
@@ -157,8 +157,17 @@ def test_cli_srcnn_weights_uncert_and_fp32(tmp_path, capsys):
                        sd["rcnn.fc1.weight"])
     model, u = load(str(tmp_path / "sd.pt"))
     assert not u.any()
-    with pytest.raises(SystemExit, match="ROADMAP item 13"):
-        load(str(tmp_path / "published.pth"))
+    from test_torch_import import _synthetic_upstream_sd
+    published = {"module." + k: torch.from_numpy(np.asarray(v))
+                 for k, v in _synthetic_upstream_sd(cfg).items()}
+    torch.save({"model": published, "uncert": uncert - 1},
+               str(tmp_path / "published.pth"))
+    capsys.readouterr()
+    model, u = load(str(tmp_path / "published.pth"))
+    assert torch.equal(u, uncert - 1)
+    assert torch.equal(model.state_dict()["rcnn.cls_score.bias"],
+                       published["module.RCNN_cls_score.bias"])
+    assert "kpts convs=4, unmapped=0)" in capsys.readouterr().out
 
     data = str(tmp_path / "kitti")
     _kitti_dir(data, ["000001"])

@@ -376,6 +376,17 @@ def test_attack_refuses_checkpoints_it_cannot_read(tmp_path):
                              "--device", "cpu", "--ckpt", str(ckpt)])
 
 
-def test_train_cli_refuses_srcnn(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 13"):
-        T.main(["--data_path", str(tmp_path), "--detector", "srcnn"])
+def test_train_cli_refuses_srcnn(tmp_path, capsys):
+    """`--detector srcnn` trains (it was refused before Stereo R-CNN
+    training was ported): one tiny epoch, logged with `uncert`, and a
+    checkpoint of the network, `uncert`, the optimizer and the epoch."""
+    from test_torch_cli import _kitti_dir
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ["000001"])
+    ck = str(tmp_path / "ck")
+    T.main(["--data_path", data, "--detector", "srcnn", "--tiny",
+            "--device", "cpu", "--epochs", "1", "--ckpt_dir", ck])
+    assert "epoch 1: loss " in capsys.readouterr().out
+    saved = C.restore_checkpoint(os.path.join(ck, "epoch1"))
+    assert set(saved) == {"params", "uncert", "opt_state", "epoch"}
+    assert saved["uncert"].shape == (6,) and saved["epoch"] == 1
