@@ -118,6 +118,28 @@ Phases (any failure ends the run with a non-zero exit):
      peak memory, top kernels); (d) a random state dict in the upstream
      published layout, read by the srcnn attack, predict and patch CLIs
      with 0 unmapped keys.
+  12. the safety stage (convert_gt_scenarios, convert_scenarios,
+     plan_motion, check_collision, eval, plot_scenario, plot_solution),
+     on the host, launching no port kernel: (a) phase 10's classify_split
+     folders (phase 4's GT labels, bucketed and coded) to GT scenarios,
+     and the card's own detections (phase 6's DSGN txts on the clean and
+     the attacked frames, phase 9's Stereo R-CNN txts on both) converted,
+     planned, checked with --check_all and scored with eval --json: every
+     file written, every rate in [0, 1], collision.txt's count equal to
+     num_collisions (a rate of 0 is a result); (b) a seeded synthetic
+     `kitti_labeled` tree at the reference corpus's size (319 static, 69
+     dynamic and 168 road-dynamic frames, 0-12 vehicles each among
+     pedestrians and cyclists) and detections derived from it with
+     seeded misses and jitter, through the same chain, which must give
+     solved and unsolved scenarios and colliding and clean solutions; (c)
+     a rerun of (b)'s chain writing the same scenarios, solutions and
+     collision.txt byte for byte and the same metrics; (d)
+     plot_scenario, plot_solution and check_collision --plot on two of
+     (b)'s scenarios, each PNG decoding at 600 x 1000; (e) the port's
+     launch counts unchanged over the phase; (f) `safety_pipeline`: the
+     scenarios, solved and colliding, the five metrics, each stage's
+     seconds, planning ms a scenario (median, p90, max) and expansions,
+     all on the card machine's host CPU.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -3645,6 +3667,312 @@ def srcnn_train_phase(tmp, dev, card, tiny=False):
     return launches, steps
 
 
+# --------------------------------------------------------------- phase 12
+
+# the reference's kitti_labeled corpus: 319 static, 69 dynamic and 168
+# road-dynamic frames (label folder, annotation folder, frames)
+CORPUS = (("static_label", None, 319),
+          ("dynamic_label", "dynamic_annotation", 69),
+          ("road_dynamic_label", "road_dynamic_annotation", 168))
+CORPUS_VEHICLES = ("Car",) * 8 + ("Van", "Truck", "Misc")
+CORPUS_OTHERS = ("Pedestrian", "Cyclist", "DontCare")
+# KITTI's mean (h, w, l) of each class
+CORPUS_DIMS = {"Car": (1.53, 1.63, 3.88), "Van": (2.21, 1.90, 5.08),
+               "Truck": (3.25, 2.59, 10.1), "Misc": (1.91, 1.51, 3.58),
+               "Pedestrian": (1.76, 0.66, 0.84),
+               "Cyclist": (1.74, 0.60, 1.76), "DontCare": (-1.0, -1.0, -1.0)}
+
+
+def corpus_line(rng, typ, x, z, ry, score=None):
+    """A KITTI label line (16 fields with a score) of an object of class
+    `typ` at (x, z) in the camera frame, heading ry: its size within 10%
+    of the class mean, its bottom 1.4-1.8 m below the camera, its 2D box
+    projected through KITTI's camera."""
+    h, w, l = (d * rng.uniform(0.9, 1.1) for d in CORPUS_DIMS[typ])
+    y = 1.6 + rng.uniform(-0.2, 0.2)
+    u, v = 609.6 + 721.5 * x / z, 172.9 + 721.5 * y / z
+    bw, bh = 721.5 * w / z, 721.5 * h / z
+    fields = [typ, f"{rng.uniform(0, 0.3):.2f}", str(rng.randint(0, 3)),
+              f"{-math.atan2(x, z) + ry:.2f}", f"{u - bw / 2:.2f}",
+              f"{v - bh:.2f}", f"{u + bw / 2:.2f}", f"{v:.2f}",
+              f"{h:.2f}", f"{w:.2f}", f"{l:.2f}", f"{x:.2f}", f"{y:.2f}",
+              f"{z:.2f}", f"{ry:.2f}"]
+    if score is not None:
+        fields.append(f"{score:.8f}")
+    return " ".join(fields)
+
+
+def corpus_frame(rng):
+    """One frame's objects (class, x, z, ry): 0-12 vehicles, most in the
+    side lanes (3-15 m off the camera's axis) and 2% in the ego lane, 4-45
+    m ahead, 80% driving along the road either way; 0-3 pedestrians,
+    cyclists or DontCare boxes among them."""
+    objs = []
+    for _ in range(rng.randint(0, 13)):
+        typ = CORPUS_VEHICLES[rng.randint(len(CORPUS_VEHICLES))]
+        x = rng.uniform(-1.5, 1.5) if rng.rand() < 0.02 else \
+            rng.choice((-1, 1)) * rng.uniform(3.0, 15.0)
+        z = rng.uniform(4.0, 45.0)
+        ry = (rng.choice((-0.5, 0.5)) * math.pi + rng.normal(0, 0.15)
+              if rng.rand() < 0.8 else rng.uniform(-math.pi, math.pi))
+        objs.append((typ, x, z, (ry + math.pi) % (2 * math.pi) - math.pi))
+    for _ in range(rng.randint(0, 4)):
+        objs.insert(rng.randint(len(objs) + 1), (
+            CORPUS_OTHERS[rng.randint(3)], rng.uniform(-15, 15),
+            rng.uniform(4, 45), rng.uniform(-math.pi, math.pi)))
+    return objs
+
+
+def write_labeled_corpus(root, counts=CORPUS, seed=0):
+    """A seeded `kitti_labeled/` tree under `root` in the reference's
+    layout with `counts` frames a class, and `det/`, a detection txt a
+    frame: each GT object missed with probability 0.1, else moved by
+    N(0, 0.3 m) across and N(0, 3%) in depth and turned by N(0, 0.1 rad),
+    with a score; 5% of the frames get a false car. Annotation codes: 'n'
+    for the non-vehicles and 5% of the vehicles, '0' 55%, '1' 35% and
+    '-1' 5%. Returns the frame ids."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    total = sum(n for _, _, n in counts)
+    ids = [f"{i:06d}" for i in rng.choice(7481, total, replace=False)]
+    det_dir = os.path.join(root, "det")
+    os.makedirs(det_dir, exist_ok=True)
+    k = 0
+    for sub, anno_sub, n in counts:
+        for d in (sub, anno_sub):
+            if d:
+                os.makedirs(os.path.join(root, "kitti_labeled", d),
+                            exist_ok=True)
+        for fid in ids[k:k + n]:
+            gt, codes, det = [], [], []
+            for typ, x, z, ry in corpus_frame(rng):
+                gt.append(corpus_line(rng, typ, x, z, ry))
+                codes.append(("0", "1", "-1", "n")[rng.choice(
+                    4, p=(0.55, 0.35, 0.05, 0.05))]
+                    if typ in CORPUS_VEHICLES else "n")
+                if rng.rand() >= 0.1:
+                    det.append(corpus_line(
+                        rng, typ, x + rng.normal(0, 0.3),
+                        z + rng.normal(0, 0.03 * z), ry + rng.normal(0, 0.1),
+                        rng.uniform(0.05, 1.0)))
+            if rng.rand() < 0.05:
+                det.append(corpus_line(
+                    rng, "Car", rng.uniform(-15, 15), rng.uniform(4, 45),
+                    rng.uniform(-math.pi, math.pi), rng.uniform(0.05, 0.5)))
+            for path, lines in (
+                    (os.path.join(root, "kitti_labeled", sub, fid), gt),
+                    (anno_sub and os.path.join(root, "kitti_labeled",
+                                               anno_sub, fid), codes),
+                    (os.path.join(det_dir, fid), det)):
+                if path:
+                    with open(path + ".txt", "w") as f:
+                        f.write("".join(ln + "\n" for ln in lines))
+        k += n
+    return ids
+
+
+def plan_and_check(work, sc, gt, dyna):
+    """plan_motion over the scenarios in `sc` into `work`/solutions, then
+    check_collision --check_all against `gt` from `work` as the working
+    directory. Returns (plan seconds, check seconds, plan records, the
+    colliding ids, collision.txt's count)."""
+    from eval_driving_safety_tpu_torch.cli import check_collision, plan_motion
+    sol = os.path.join(work, "solutions")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = plan_motion.main(["--input_folder", sc, "--output_folder",
+                                    sol, "--dyna_obj_folder", dyna])
+    t_plan = time.perf_counter() - t0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t_check, _, out = run_cli([
+            "--check_all", "--scenario_path", gt, "--solution_path", sol],
+            check_collision.main)
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(work, "collision.txt")) as f:
+        n_coll = int(f.read())
+    solved = sorted(r["id"] for r in records if r["states"])
+    check(sorted(n[17:23] for n in os.listdir(sol)) == solved
+          if os.path.isdir(sol) else not solved,
+          f"{work}: solutions {solved} not written")
+    return t_plan, t_check, records, out.strip().splitlines()[:-1], n_coll
+
+
+def safety_chain(work, labeled, det_dir, gt=None):
+    """The safety CLIs over one folder of detection txts: convert_gt_
+    scenarios of the `labeled` tree (unless `gt` holds its scenarios),
+    convert_scenarios and plan_motion with --dyna_obj_folder `labeled`'s
+    road_dynamic_label, check_collision --check_all from `work` as the
+    working directory, eval --json. Checks that every file is written,
+    that the rates lie in [0, 1] and that collision.txt counts
+    num_collisions. Returns (seconds a stage, plan records, metrics, the
+    colliding ids, gt)."""
+    from eval_driving_safety_tpu_torch.cli import (
+        convert_gt_scenarios, convert_scenarios, eval as eval_cli)
+    os.makedirs(work, exist_ok=True)
+    dyna = os.path.join(labeled, "road_dynamic_label")
+    sc = os.path.join(work, "scenarios")
+    secs = {}
+    if gt is None:
+        gt = os.path.join(work, "gt")
+        secs["convert_gt"], _, _ = run_cli([
+            "--input_folder", labeled, "--output_folder", gt],
+            convert_gt_scenarios.main)
+    secs["convert"], _, _ = run_cli([
+        "--input_folder", det_dir, "--output_folder", sc,
+        "--dyna_obj_folder", dyna], convert_scenarios.main)
+    secs["plan"], secs["check"], records, colliding, n_coll = \
+        plan_and_check(work, sc, gt, dyna)
+    secs["eval"], _, out = run_cli([
+        "--scenario_path", sc, "--solution_path", os.path.join(
+            work, "solutions"), "--gt_scenario_path", gt, "--json"],
+        eval_cli.main)
+    metrics = json.loads(out.strip().splitlines()[-1])
+    txts = sorted(n[:-4] for n in os.listdir(det_dir) if n.endswith(".txt"))
+    check(sorted(n[:-4] for n in os.listdir(sc)) == txts,
+          f"{work}: a scenario is missing")
+    check(n_coll == metrics["num_collisions"] == len(colliding)
+          and metrics["num_scenarios"] == len(txts)
+          and metrics["num_solutions"] == sum(r["states"] > 0
+                                              for r in records)
+          and all(0.0 <= metrics[k] <= 1.0 for k in (
+              "success_rate", "collision_rate", "safe_driving_rate")),
+          f"{work}: collision.txt {n_coll}, metrics {metrics}")
+    return secs, records, metrics, colliding, gt
+
+
+def card_detections_chain(tmp):
+    """(a) The earlier phases' outputs through the safety CLIs: phase 10's
+    classify_split folders (phase 4's GT labels, bucketed and coded by the
+    planted classifiers) to GT scenarios, then each detector's txts
+    (phase 6's DSGN on the clean and the attacked frames, phase 9's
+    Stereo R-CNN on both) to scenarios, solutions, collisions and
+    metrics."""
+    labeled = os.path.join(tmp, "cls_split_card")
+    gt, rec = None, {}
+    for name, det in (("dsgn_clean", "pred_steady"), ("dsgn_attacked",
+                                                      "pred_a"),
+                      ("srcnn_clean", "srcnn_pred_clean"),
+                      ("srcnn_attacked", "srcnn_pred_attacked")):
+        secs, records, metrics, _, gt = safety_chain(
+            os.path.join(tmp, "safety_" + name), labeled,
+            os.path.join(tmp, det, "data"), gt)
+        rec[name] = {"seconds": secs, **metrics}
+    return rec
+
+
+def plots_of(run, colliding):
+    """(d) plot_scenario and plot_solution on two of the corpus's
+    scenarios (a colliding and a clean solution over the GT) and
+    check_collision in single mode with --plot: each PNG decodes at the
+    plots' 600 x 1000."""
+    from eval_driving_safety_tpu_torch.cli import (check_collision,
+                                                    plot_scenario,
+                                                    plot_solution)
+    from eval_driving_safety_tpu_torch.data.kitti import decode_png_rgb
+    sol = os.path.join(run, "solutions")
+    names = sorted(os.listdir(sol))
+    hit = next(n for n in names if n[17:23] in colliding)
+    clean = next(n for n in names if n[17:23] not in colliding)
+    pngs = {}
+    for tag, main, name in (("plot_scenario", plot_scenario.main, hit),
+                            ("plot_solution", plot_solution.main, clean),
+                            ("check_collision_plot", check_collision.main,
+                             hit)):
+        png = os.path.join(run, "plots", tag + ".png")
+        args = ["--scenario_path", os.path.join(run, "gt",
+                                                name[17:23] + ".xml"),
+                "--solution_path", os.path.join(sol, name)]
+        if main is check_collision.main:
+            _, _, out = run_cli(args + ["--plot", png], main)
+            check("Does collision exist?  True" in out,
+                  f"single-mode check of {name}: {out}")
+        else:
+            run_cli(args + ["--output", png], main)
+        with open(png, "rb") as f:
+            img = decode_png_rgb(f.read())
+        check(img.shape == (600, 1000, 3) and (img < 200).any(),
+              f"{tag}: {img.shape}")
+        pngs[tag] = name[17:23]
+    return pngs
+
+
+def safety_phase(tmp, card):
+    """Phase 12 over the earlier phases' outputs in `tmp`: (a) the card's
+    detections through the safety CLIs; (b) the corpus at the reference's
+    size through them, with solved and unsolved scenarios and colliding
+    and clean solutions; (d) plots of two of its scenarios; (c) a rerun of
+    (b)'s chain that must write the same bytes and metrics; (e) no port
+    kernel launched; (f) the `safety_pipeline` line."""
+    import hashlib
+    import shutil
+    import numpy as np
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    t_phase = time.perf_counter()
+    before = dict(_cuda.launches)
+    card_runs = card_detections_chain(tmp)
+    root = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    ids = write_labeled_corpus(root)
+    t_corpus = time.perf_counter() - t0
+    labeled = os.path.join(root, "kitti_labeled")
+    runs = []
+    for k in range(2):
+        run = os.path.join(root, f"run{k}")
+        secs, records, metrics, colliding, _ = safety_chain(
+            run, labeled, os.path.join(root, "det"))
+        # every file the chain wrote (scenarios, solutions, collision.txt)
+        digest = {name: hashlib.sha256(data).hexdigest()
+                  for name, data in png_dir_bytes(run).items()}
+        runs.append((secs, records, metrics, colliding, digest))
+        if k == 0:
+            n_sol = metrics["num_solutions"]
+            check(metrics["num_scenarios"] == len(ids) == 556
+                  and 0 < n_sol < 556
+                  and 0 < metrics["num_collisions"] < n_sol,
+                  f"the corpus's outcomes {metrics}: no unsolved scenario "
+                  "or no colliding or clean solution")
+            t0 = time.perf_counter()
+            pngs = plots_of(run, colliding)
+            t_plots = time.perf_counter() - t0
+        shutil.rmtree(run)
+    check(all(a == b for a, b in zip(runs[0][2:], runs[1][2:]))
+          and [r["expansions"] for r in runs[0][1]]
+          == [r["expansions"] for r in runs[1][1]],
+          "a rerun of the corpus's chain wrote other bytes or metrics")
+    shutil.rmtree(root)
+    after = dict(_cuda.launches)
+    check(after == before, f"the safety stage launched port kernels: "
+          f"{before} -> {after}")
+    secs, records, metrics = runs[0][:3]
+    ms = np.array([r["s"] for r in records]) * 1e3
+    exp = np.array([r["expansions"] for r in records])
+    solved = np.array([r["states"] > 0 for r in records])
+    rec = {
+        "scenarios": len(ids), "solved": int(solved.sum()),
+        "colliding": metrics["num_collisions"],
+        "classes": {sub: n for sub, _, n in CORPUS},
+        "metrics": {k: metrics[k] for k in (
+            "success_rate", "collision_rate", "safe_driving_rate",
+            "avg_trajectory_length", "avg_travel_time")},
+        "stage_s": {"write_corpus": t_corpus, **secs, "plots": t_plots},
+        "rerun_stage_s": runs[1][0],
+        "scenarios_per_s": len(ids) / sum(secs.values()),
+        "plan_ms_per_scenario": {"median": float(np.median(ms)),
+                                 "p90": float(np.percentile(ms, 90)),
+                                 "max": float(ms.max()),
+                                 "unsolved_total": float(ms[~solved].sum())},
+        "expansions": {"median": float(np.median(exp)),
+                       "max": int(exp.max())},
+        "files_compared": len(runs[0][4]),
+        "card_detections": card_runs, "plots": pngs,
+        "launches": after, "phase_s": time.perf_counter() - t_phase,
+        "host": "the card machine's CPU", "card": card}
+    log(json.dumps({"safety_pipeline": rec}))
+    return rec
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3743,6 +4071,10 @@ def main():
         lap("10_classifiers")
         st_launches, st_steps = srcnn_train_phase(tmp, dev, card)
         lap("11_srcnn_train")
+        # 12. the safety stage on the earlier phases' detections and
+        # classifications, and on a corpus at the reference's size
+        safety_phase(tmp, card)
+        lap("12_safety")
     torch.cuda.empty_cache()
     steady_state(full, dev, card)
     lap("4_attack_steady_state")

@@ -1,13 +1,14 @@
-"""Configuration of the ported DSGN, Stereo R-CNN and classifier paths.
+"""Configuration of the ported DSGN, Stereo R-CNN, classifier and safety
+paths.
 
-Field-for-field the DSGN, Stereo R-CNN, input, PGD, patch and classifier
-configs of the JAX package, so a configuration means the same model in both. Two fields
-name the formulation of the volume ops, and their defaults differ from
-the JAX package's: there the defaults were chosen for the TPU's matrix
-unit, here
-"kernel" selects the hand-written CUDA kernels (ops.psv_warp,
-ops.depthconv). The alternatives are the JAX defaults' formulations in
-plain PyTorch library ops.
+Field-for-field the DSGN, Stereo R-CNN, input, PGD, patch, classifier,
+scenario and planner configs of the JAX package, so a configuration means
+the same model in both. Two fields name the formulation of the volume
+ops, and their defaults differ from the JAX package's: there the
+defaults were chosen for the TPU's matrix unit, here "kernel" selects
+the hand-written CUDA kernels (ops.psv_warp, ops.depthconv). The
+alternatives are the JAX defaults' formulations in plain PyTorch library
+ops.
 """
 from __future__ import annotations
 
@@ -259,3 +260,43 @@ class DynamicVehicleConfig:
     epochs: int = 12
     batch_size: int = 32
     crop_margin: int = 4                     # crop side = max(w, h) + 4
+
+
+# ---------------------------------------------------------------------------
+# Safety evaluation: scenario conversion and the planner
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ScenarioConfig:
+    """KITTI labels -> CommonRoad scenarios: the street and highway speed
+    bands of a dynamic obstacle's constant-velocity rollout, its steps,
+    and the label classes that become obstacles."""
+    street_vmin: float = 6.0
+    street_vmax: float = 8.0
+    highway_vmin: float = 11.0
+    highway_vmax: float = 13.0
+    dt: float = 0.1
+    dynamic_rollout_steps: int = 19
+    obstacle_classes: Tuple[str, ...] = ("Car", "Van", "Truck", "Misc")
+
+
+@dataclass(frozen=True)
+class PlannerConfig:
+    """A* over the BMW 320i's kinematic single-track motion primitives.
+    Frozen: `safety.primitives.primitives_for_band` caches on it."""
+    dt: float = 0.1
+    primitive_duration: float = 0.5
+    steering_min: float = -1.066
+    steering_max: float = 1.066
+    steering_step: float = 0.36
+    # (vmin, vmax, vstep); a vstep of 0 samples the endpoints only
+    street_v: Tuple[float, float, float] = (6.0, 8.0, 0.0)
+    highway_v: Tuple[float, float, float] = (11.0, 13.0, 2.0)
+    max_tree_depth: int = 100
+    max_expansions: int = 20000
+    # the visited set's bucket sizes (x/y metres, psi/sa radians, v m/s):
+    # coarser buckets prune more states, finer ones search more of the
+    # automaton
+    visited_xy: float = 0.1
+    visited_angle: float = 0.02
+    visited_v: float = 0.1

@@ -131,6 +131,12 @@ def read_label(path: str) -> List[KittiObject]:
         return [KittiObject.from_line(ln) for ln in f if ln.strip()]
 
 
+def write_label(path: str, objects: Sequence[KittiObject]) -> None:
+    with open(path, "w") as f:
+        for o in objects:
+            f.write(o.to_line() + "\n")
+
+
 def format_detection_line(cls_name: str, alpha: float, bbox, h: float,
                           w: float, l: float, x: float, y: float, z: float,
                           ry: float, score: float) -> str:
