@@ -3683,23 +3683,21 @@ CORPUS_DIMS = {"Car": (1.53, 1.63, 3.88), "Van": (2.21, 1.90, 5.08),
                "Cyclist": (1.74, 0.60, 1.76), "DontCare": (-1.0, -1.0, -1.0)}
 
 
-def corpus_line(rng, typ, x, z, ry, score=None):
-    """A KITTI label line (16 fields with a score) of an object of class
-    `typ` at (x, z) in the camera frame, heading ry: its size within 10%
-    of the class mean, its bottom 1.4-1.8 m below the camera, its 2D box
+def corpus_object(rng, typ, x, z, ry, score=None):
+    """A KITTI label (a detection with a score) of an object of class `typ`
+    at (x, z) in the camera frame, heading ry: its size within 10% of the
+    class mean, its bottom 1.4-1.8 m below the camera, its 2D box
     projected through KITTI's camera."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.data.kitti import KittiObject
     h, w, l = (d * rng.uniform(0.9, 1.1) for d in CORPUS_DIMS[typ])
     y = 1.6 + rng.uniform(-0.2, 0.2)
     u, v = 609.6 + 721.5 * x / z, 172.9 + 721.5 * y / z
     bw, bh = 721.5 * w / z, 721.5 * h / z
-    fields = [typ, f"{rng.uniform(0, 0.3):.2f}", str(rng.randint(0, 3)),
-              f"{-math.atan2(x, z) + ry:.2f}", f"{u - bw / 2:.2f}",
-              f"{v - bh:.2f}", f"{u + bw / 2:.2f}", f"{v:.2f}",
-              f"{h:.2f}", f"{w:.2f}", f"{l:.2f}", f"{x:.2f}", f"{y:.2f}",
-              f"{z:.2f}", f"{ry:.2f}"]
-    if score is not None:
-        fields.append(f"{score:.8f}")
-    return " ".join(fields)
+    return KittiObject(
+        typ, rng.uniform(0, 0.3), rng.randint(0, 3), -math.atan2(x, z) + ry,
+        np.array([u - bw / 2, v - bh, u + bw / 2, v]), np.array([h, w, l]),
+        np.array([x, y, z]), ry, score)
 
 
 def corpus_frame(rng):
@@ -3732,6 +3730,7 @@ def write_labeled_corpus(root, counts=CORPUS, seed=0):
     for the non-vehicles and 5% of the vehicles, '0' 55%, '1' 35% and
     '-1' 5%. Returns the frame ids."""
     import numpy as np
+    from eval_driving_safety_tpu_torch.data.kitti import write_label
     rng = np.random.RandomState(seed)
     total = sum(n for _, _, n in counts)
     ids = [f"{i:06d}" for i in rng.choice(7481, total, replace=False)]
@@ -3746,27 +3745,26 @@ def write_labeled_corpus(root, counts=CORPUS, seed=0):
         for fid in ids[k:k + n]:
             gt, codes, det = [], [], []
             for typ, x, z, ry in corpus_frame(rng):
-                gt.append(corpus_line(rng, typ, x, z, ry))
+                gt.append(corpus_object(rng, typ, x, z, ry))
                 codes.append(("0", "1", "-1", "n")[rng.choice(
                     4, p=(0.55, 0.35, 0.05, 0.05))]
                     if typ in CORPUS_VEHICLES else "n")
                 if rng.rand() >= 0.1:
-                    det.append(corpus_line(
+                    det.append(corpus_object(
                         rng, typ, x + rng.normal(0, 0.3),
                         z + rng.normal(0, 0.03 * z), ry + rng.normal(0, 0.1),
                         rng.uniform(0.05, 1.0)))
             if rng.rand() < 0.05:
-                det.append(corpus_line(
+                det.append(corpus_object(
                     rng, "Car", rng.uniform(-15, 15), rng.uniform(4, 45),
                     rng.uniform(-math.pi, math.pi), rng.uniform(0.05, 0.5)))
-            for path, lines in (
-                    (os.path.join(root, "kitti_labeled", sub, fid), gt),
-                    (anno_sub and os.path.join(root, "kitti_labeled",
-                                               anno_sub, fid), codes),
-                    (os.path.join(det_dir, fid), det)):
-                if path:
-                    with open(path + ".txt", "w") as f:
-                        f.write("".join(ln + "\n" for ln in lines))
+            write_label(os.path.join(root, "kitti_labeled", sub,
+                                     fid + ".txt"), gt)
+            write_label(os.path.join(det_dir, fid + ".txt"), det)
+            if anno_sub:
+                with open(os.path.join(root, "kitti_labeled", anno_sub,
+                                       fid + ".txt"), "w") as f:
+                    f.write("".join(c + "\n" for c in codes))
         k += n
     return ids
 
@@ -3909,6 +3907,7 @@ def safety_phase(tmp, card):
     import hashlib
     import shutil
     import numpy as np
+    from eval_driving_safety_tpu_torch.config import PlannerConfig
     from eval_driving_safety_tpu_torch.ops import _cuda
     t_phase = time.perf_counter()
     before = dict(_cuda.launches)
@@ -3950,10 +3949,23 @@ def safety_phase(tmp, card):
     ms = np.array([r["s"] for r in records]) * 1e3
     exp = np.array([r["expansions"] for r in records])
     solved = np.array([r["states"] > 0 for r in records])
+    cap = PlannerConfig().max_expansions
+    cls, k = np.empty(len(records), object), 0
+    where = {r["id"]: i for i, r in enumerate(records)}
+    for sub, _, n in CORPUS:
+        cls[[where[i] for i in ids[k:k + n]]] = sub
+        k += n
     rec = {
         "scenarios": len(ids), "solved": int(solved.sum()),
         "colliding": metrics["num_collisions"],
-        "classes": {sub: n for sub, _, n in CORPUS},
+        "traffic": "synthetic: write_labeled_corpus(seed=0)",
+        # the reference's corpus (PARITY.md): 315, 69 and 165 solved,
+        # 18, 3 and 4 ms a plan on average, no search at the cap
+        "classes": {sub: {
+            "scenarios": n, "solved": int(solved[cls == sub].sum()),
+            "capped": int((exp[cls == sub] >= cap).sum()),
+            "plan_ms_mean": float(ms[cls == sub].mean())}
+            for sub, _, n in CORPUS},
         "metrics": {k: metrics[k] for k in (
             "success_rate", "collision_rate", "safe_driving_rate",
             "avg_trajectory_length", "avg_travel_time")},
@@ -3965,7 +3977,8 @@ def safety_phase(tmp, card):
                                  "max": float(ms.max()),
                                  "unsolved_total": float(ms[~solved].sum())},
         "expansions": {"median": float(np.median(exp)),
-                       "max": int(exp.max())},
+                       "max": int(exp.max()),
+                       "capped": int((exp >= cap).sum())},
         "files_compared": len(runs[0][4]),
         "card_detections": card_runs, "plots": pngs,
         "launches": after, "phase_s": time.perf_counter() - t_phase,

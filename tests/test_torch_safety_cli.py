@@ -29,6 +29,7 @@ from eval_driving_safety_tpu_torch.cli import eval as p_eval
 from eval_driving_safety_tpu_torch.cli import plan_motion as p_plan
 from eval_driving_safety_tpu_torch.cli import plot_scenario as p_plot_scenario
 from eval_driving_safety_tpu_torch.cli import plot_solution as p_plot_solution
+from eval_driving_safety_tpu_torch.cli import safety_io_split
 from eval_driving_safety_tpu_torch.cli.predict_and_save import \
     main as predict_main
 from eval_driving_safety_tpu_torch.config import DSGNConfig
@@ -140,6 +141,29 @@ def test_the_safety_clis_match_the_jax_package(tmp_path, monkeypatch,
         assert capsys.readouterr().out == "Does collision exist?  True\n"
     with open("single.png", "rb") as f:
         assert TK.decode_png_rgb(f.read()).shape == (600, 1000, 3)
+
+
+def test_the_io_split_writes_the_same_files_with_either_io(tmp_path,
+                                                          capsys):
+    """cli/safety_io_split.py's four runs (the port's IO, ElementTree's,
+    the port's without its bound cache, the port's) write the same bytes
+    and metrics, or it exits."""
+    root = str(tmp_path)
+    chip_smoke.write_labeled_corpus(root, (
+        ("static_label", None, 1), ("dynamic_label", "dynamic_annotation", 1),
+        ("road_dynamic_label", "road_dynamic_annotation", 1)), SEED)
+    runs = safety_io_split.main([
+        "--input_folder", os.path.join(root, "kitti_labeled"),
+        "--det_folder", os.path.join(root, "det"),
+        "--work", os.path.join(root, "io")])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [r["io"] for r in runs] == ["text", "etree", "text_uncached",
+                                       "text"]
+    assert line["safety_io_split"]["scenarios"] == 3
+    assert line["safety_io_split"]["metrics"]["num_scenarios"] == 3
+    assert all(set(r["stage_s"]) == {"convert_gt", "convert", "plan",
+                                     "check", "eval"} for r in runs)
+    assert os.listdir(os.path.join(root, "io")) == []
 
 
 def test_plots_draw_obstacles_inside_the_jax_corners(tmp_path):
