@@ -28,8 +28,11 @@ Phases (any failure ends the run with a non-zero exit):
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
      (3 iterations), check the output sweep, that the kernels were
      launched at the shapes phase 2 checked, K1 and K2 with 16-byte
-     accesses only, without alignment or contiguity copies, and that
-     --transfer full writes the same PNGs; time the
+     accesses only, without alignment or contiguity copies, that
+     both runs reached the native host stages only (replay_sweep_u8 once
+     a side in the signs run, png_store_write for every PNG, the numpy
+     replays and the zlib writer never) and that --transfer full writes
+     the same PNGs; time the
      steady-state attack iteration and
      profile one. The kernels' per-iteration times weight phase 2's
      per-shape times by the launches the wrappers recorded in this run.
@@ -71,11 +74,20 @@ Phases (any failure ends the run with a non-zero exit):
      launches none of the port's kernels: (a) the CLI at
      StereoRCNNConfig() (ResNet-101 FPN, 600 x 1984, bf16, s2d) over
      phase 4's frames, 3 iterations: the sweep at network scale, the
-     int32 host replay, a rerun with the same packed signs and bytes,
-     --transfer full with the same bytes; (b) the tiny model in fp32 on
-     the card and on the CPU; (c) the steady-state iteration, its profile
-     and ROIAlign's share (`srcnn_steady_state`); (d) one --fp32 run,
-     which must turn TF32 off.
+     native integer host replay (the log says "native/int"; the runs
+     reach the native host stages only, as in phase 4), a rerun with the
+     same packed signs and bytes, --transfer full with the same bytes;
+     (b) the tiny model in fp32 on the card and on the CPU; (c) the
+     steady-state iteration, its profile and ROIAlign's share
+     (`srcnn_steady_state`); (d) one --fp32 run, which must turn TF32
+     off; (e) the sweeps' host stages on phase 4's first frame pair at
+     paper size (DSGN 384 x 1248, Stereo R-CNN 600 x 1984, 3 iterations,
+     seeded 2-bit and 1-bit signs; no model run): native
+     (attack/replay_native.py, data/png_store.py) against the plain numpy
+     and zlib versions, every pair of outputs equal, a white frame's PNG
+     decoded whole, each stage's median host ms, printed
+     as the `replay` line after the DSGN steady state with the card's ms
+     per pair of each detector's sweep.
   9. Stereo R-CNN predict (cli/predict_and_save.py --detector srcnn)
      and its patch attack (cli/patch_attack.py --detector srcnn), at
      StereoRCNNConfig() in bf16, batch 1, neither launching a port
@@ -890,6 +902,53 @@ def run_cli(args, main=None):
     return dt, losses, out
 
 
+@contextlib.contextmanager
+def native_host_path():
+    """Count the sweep's calls of its native host stages
+    (attack.replay_native.replay_sweep_u8, data.png_store.png_store_write)
+    and make their plain versions (attack.pgd's replays,
+    data.kitti.write_png) raise: a --transfer signs or full sweep must
+    reach the native functions only. Yields the counts."""
+    import threading
+    from eval_driving_safety_tpu_torch.attack import pgd as P
+    from eval_driving_safety_tpu_torch.attack import replay_native as R
+    from eval_driving_safety_tpu_torch.data import kitti as K
+    from eval_driving_safety_tpu_torch.data import png_store as PS
+    calls = {"replay_sweep_u8": 0, "png_store_write": 0}
+    lock = threading.Lock()
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (R, "replay_sweep_u8"), (PS, "png_store_write"),
+        (P, "replay_pgd_255"), (P, "replay_pgd_ints"), (P, "replay_pgd"),
+        (K, "write_png"))]
+
+    def counted(name, fn):
+        def call(*a, **k):
+            with lock:
+                calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    def refused(name):
+        def call(*a, **k):
+            raise RuntimeError(f"the sweep reached the plain {name}")
+        return call
+    for m, n, fn in saved:
+        setattr(m, n, counted(n, fn) if n in calls else refused(n))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def native_calls_ok(calls, pairs, iters, replays):
+    """Whether a sweep of `pairs` frame pairs and `iters` iterations wrote
+    every PNG natively and replayed each side natively `replays` times a
+    pair (1 for a signs run, 0 for a full one)."""
+    return calls == {"replay_sweep_u8": 2 * pairs * replays,
+                     "png_store_write": 2 * pairs * (iters + 1)}
+
+
 def the_slice(tmp, card, dev, scale="paper"):
     import numpy as np
     import torch
@@ -901,9 +960,12 @@ def the_slice(tmp, card, dev, scale="paper"):
     common = ["--data_path", data, "--detector", "dsgn", "--scale", scale,
               "--iter", str(iters), "--batch", "1", "--device", str(dev)]
     _cuda.reset_launches()
-    t_signs, losses, _ = run_cli(common + [
-        "--out_prefix", os.path.join(tmp, "signs", "dsgn_pgd")])
+    with native_host_path() as native_signs:
+        t_signs, losses, _ = run_cli(common + [
+            "--out_prefix", os.path.join(tmp, "signs", "dsgn_pgd")])
     launches = dict(_cuda.launches)
+    check(native_calls_ok(native_signs, len(ids), iters, 1),
+          f"the signs sweep's native host calls {native_signs}")
     shapes = dict(_cuda.launch_shapes)
     widths = dict(_cuda.launch_widths)
     check(attack_launches_ok(launches),
@@ -920,9 +982,12 @@ def the_slice(tmp, card, dev, scale="paper"):
     check(len(losses) == len(ids) and all(
         len(l) == iters and all(math.isfinite(v) for v in l)
         for l in losses), f"losses not finite: {losses}")
-    t_full, losses_full, _ = run_cli(common + [
-        "--out_prefix", os.path.join(tmp, "full", "dsgn_pgd"),
-        "--transfer", "full"])
+    with native_host_path() as native_full:
+        t_full, losses_full, _ = run_cli(common + [
+            "--out_prefix", os.path.join(tmp, "full", "dsgn_pgd"),
+            "--transfer", "full"])
+    check(native_calls_ok(native_full, len(ids), iters, 0),
+          f"the full sweep's native host calls {native_full}")
     eps = 76.5
     for fid in ids:
         clean = load_image_u8(os.path.join(data, "image_2", fid + ".png"))
@@ -953,7 +1018,9 @@ def the_slice(tmp, card, dev, scale="paper"):
         "attack_iters_per_s_signs_run": n_pairs * iters / t_signs,
         "losses": losses, "launches": launches,
         "vector_bytes": {f"{k} {wd}": v for (k, wd), v in widths.items()},
-        "align_copies": sum(copies.values()), "card": card}}))
+        "align_copies": sum(copies.values()),
+        "native_host_calls": {"signs": native_signs, "full": native_full},
+        "card": card}}))
     return launches, shapes, widths, n_pairs * iters
 
 
@@ -1037,6 +1104,7 @@ def steady_state(cfg, dev, card):
         "port_kernel_ms": port_us / 1e3,
         "top_kernels_ms": [[k[:70], c, us / 1e3] for us, k, c in rows[:16]],
         "card": card}}))
+    return ss
 
 
 # --------------------------------------------------------------- phase 5
@@ -2093,18 +2161,22 @@ def srcnn_cli(tmp, dev):
     _cuda.reset_launches()
     for name in ("signs", "signs_rerun", "full"):
         extra = ["--transfer", "full"] if name == "full" else []
-        with recorded_signs() as seen:
+        with recorded_signs() as seen, native_host_path() as calls:
             t, losses, out = run_cli(common + extra + [
                 "--out_prefix", os.path.join(tmp, "srcnn_" + name,
                                              "stereo_rcnn_pgd")])
-        runs[name] = {"run_s": t, "losses": losses}
+        runs[name] = {"run_s": t, "losses": losses,
+                      "native_host_calls": calls}
         signs[name] = sorted(seen)
         check(len(losses) == len(SRCNN_IDS) and all(
             len(l) == SRCNN_ITERS and all(map(math.isfinite, l))
             for l in losses), f"srcnn {name} run: losses {losses}")
+        check(native_calls_ok(calls, len(SRCNN_IDS), SRCNN_ITERS,
+                              name != "full"),
+              f"srcnn {name} run: native host calls {calls}")
         if name != "full":
-            check("host replay path: int32" in out,
-                  f"srcnn {name} run: the int32 replay was not taken")
+            check("host replay path: native/int" in out,
+                  f"srcnn {name} run: the native replay was not taken")
     launches = dict(_cuda.launches)
     check(not any(launches.values()),
           f"the Stereo R-CNN attack launched port kernels: {launches}")
@@ -2303,16 +2375,246 @@ def srcnn_fp32_cli(tmp, dev):
 
 
 def stereo_rcnn_phase(tmp, dev, card):
-    """Phase 8 over phase 4's frames in `tmp`; the launches of (a)."""
+    """Phase 8 over phase 4's frames in `tmp`; the launches of (a) and
+    the steady-state record of (c)."""
     import torch
     launches = srcnn_cli(tmp, dev)
     tiny_srcnn_card_vs_cpu(dev)
     torch.cuda.empty_cache()
-    srcnn_steady_state(tmp, dev, card)
+    steady = srcnn_steady_state(tmp, dev, card)
     torch.cuda.empty_cache()
     srcnn_fp32_cli(tmp, dev)
     torch.cuda.empty_cache()
-    return launches
+    return launches, steady
+
+
+def host_ms(fn, reps=5):
+    """Median host time of `fn` over `reps` calls (perf_counter), after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+@contextlib.contextmanager
+def o3_builds(build_dir):
+    """Inside the block the sweep's libraries (attack.replay_native,
+    data.png_store) are built and loaded at -O3 alone, into build_dir."""
+    from eval_driving_safety_tpu_torch.attack import replay_native as R
+    from eval_driving_safety_tpu_torch.data import png_store as PS
+    saved = [(m, m.CXX_FLAGS, m.BUILD_DIR, m._lib) for m in (R, PS)]
+    for m in (R, PS):
+        m.CXX_FLAGS, m.BUILD_DIR, m._lib = ("-O3", "-shared", "-fPIC"), \
+            build_dir, None
+    try:
+        yield
+    finally:
+        for m, flags, build, lib in saved:
+            m.CXX_FLAGS, m.BUILD_DIR, m._lib = flags, build, lib
+
+
+def replay_host_stages(tmp):
+    """The sweeps' host stages at paper size on phase 4's first frame
+    pair, native (attack.replay_native, data.png_store) against the plain
+    versions the sweeps ran before (attack.pgd's numpy replays, the numpy
+    resize and quantize, data.kitti.write_png at level 0): every pair of
+    outputs equal byte for byte, and each stage's median host ms. Seeded signs,
+    SRCNN_ITERS iterations, 2-bit codes with zeros and the 1-bit plane
+    of zero-free signs; no model runs."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack import pgd as P
+    from eval_driving_safety_tpu_torch.attack import replay_native as R
+    from eval_driving_safety_tpu_torch.config import (DSGNInputConfig,
+                                                      SRCNNInputConfig)
+    from eval_driving_safety_tpu_torch.data import dataset as D
+    from eval_driving_safety_tpu_torch.data import kitti as K
+    from eval_driving_safety_tpu_torch.data import png_store as PS
+    sample = D.KittiStereoDataset(os.path.join(tmp, "kitti")).get(0)
+    rng = np.random.RandomState(15)
+    iters = SRCNN_ITERS
+    equal, ms = {}, {}
+
+    def packed_signs(shape):
+        s2 = torch.from_numpy(rng.randint(-1, 2, (iters, *shape)).astype(
+            np.float32))
+        s1 = torch.from_numpy(rng.choice(np.float32([-1, 1]),
+                                         (iters, *shape)))
+        return {2: P.pack_signs(s2).numpy(), 1: P.pack_bits(s1 > 0).numpy()}
+
+    def two_bit(p, bits):
+        return p if bits == 2 else P.signs1_to_packed2(p)
+
+    def same(name, a, b):
+        equal[name] = bool(np.array_equal(a, b))
+        check(equal[name], f"replay line: native and plain {name} differ")
+
+    def as_bytes(out):
+        """A stage's output (arrays, or a file's bytes) as one u8 array."""
+        if isinstance(out, bytes):
+            return np.frombuffer(out, np.uint8)
+        return np.concatenate([np.ravel(a).view(np.uint8) for a in out])
+    # stage -> (its native call, the calls one makes, its output's bytes
+    # [, the file it writes])
+    tuned = {}
+
+    # DSGN 255-space, frames padded to 384 x 1248, both sides
+    bd = D.prepare_dsgn_batch_u8([sample], DSGNInputConfig())
+    cl, cr = bd["im_left_u8"], bd["im_right_u8"]
+    pl, pr = packed_signs(cl.shape), packed_signs(cr.shape)
+    dsgn_frames = None
+    for bits in (2, 1):
+        kw = dict(alpha2=2, eps2=153, max2=510, c255=1.0,
+                  flip_channels=False, bits=bits)
+
+        def nat(kw=kw, sl=pl[bits], sr=pr[bits]):
+            return (R.replay_sweep_u8(cl.astype(np.int32), sl, **kw),
+                    R.replay_sweep_u8(cr.astype(np.int32), sr, **kw))
+
+        def plain():
+            fr = list(P.replay_pgd_255(cl, cr, two_bit(pl[bits], bits),
+                                       two_bit(pr[bits], bits), eps=76.5))
+            return (np.stack([a for a, _ in fr]), np.stack([b for _, b in fr]))
+        got, want = nat(), plain()
+        same(f"dsgn_replay_b{bits}", np.stack(got), np.stack(want))
+        dsgn_frames = got
+        tuned[f"dsgn_replay_b{bits}"] = (nat, 2 * iters, as_bytes(got))
+        ms[f"dsgn_replay_b{bits}"] = {
+            "native": host_ms(nat) / (2 * iters),
+            "plain": host_ms(plain) / (2 * iters)}
+
+    # Stereo R-CNN v-space at 600 x 1984: the resize with the iteration-0
+    # quantize, then the replay, both sides
+    bs = D.prepare_srcnn_batch_u8([sample], SRCNNInputConfig())
+    c255 = bs["c255"]
+
+    def resize_nat():
+        return D.srcnn_cleanv_q0_host(bs)
+
+    def resize_plain():
+        vl, vr = D.srcnn_cleanv_host(bs)
+        return (vl, vr, D.quantize_v_rgb_u8(vl.astype(np.float32), c255),
+                D.quantize_v_rgb_u8(vr.astype(np.float32), c255))
+    got, want = resize_nat(), resize_plain()
+    for name, a, b in zip(("v_left", "v_right", "q0_left", "q0_right"),
+                          got, want):
+        same(f"srcnn_resize_{name}", a, b)
+    vl, vr, q0l = got[0], got[1], got[2]
+    tuned["srcnn_resize_q0"] = (resize_nat, 2, as_bytes(got))
+    ms["srcnn_resize_q0"] = {"native": host_ms(resize_nat) / 2,
+                             "plain": host_ms(resize_plain) / 2}
+    k = bs["den_h"].astype(np.int64) * bs["den_w"]
+    a2, e2, m2 = 2 * k, 153 * k, 510 * k
+    pl, pr = packed_signs(vl.shape), packed_signs(vr.shape)
+    srcnn_frames = None
+    for bits in (2, 1):
+        kw = dict(alpha2=a2, eps2=e2, max2=m2, c255=c255, flip_channels=True,
+                  bits=bits)
+
+        def nat(kw=kw, sl=pl[bits], sr=pr[bits]):
+            return (R.replay_sweep_u8(vl, sl, **kw),
+                    R.replay_sweep_u8(vr, sr, **kw))
+
+        def plain():
+            half = np.float32(0.5)
+            fr = [(D.quantize_v_rgb_u8(a.astype(np.float32) * half, c255),
+                   D.quantize_v_rgb_u8(b.astype(np.float32) * half, c255))
+                  for a, b in P.replay_pgd_ints(
+                      vl * 2, vr * 2, two_bit(pl[bits], bits),
+                      two_bit(pr[bits], bits), alpha2=a2, eps2=e2,
+                      clip_max2=m2)]
+            return (np.stack([a for a, _ in fr]), np.stack([b for _, b in fr]))
+        got, want = nat(), plain()
+        same(f"srcnn_replay_b{bits}", np.stack(got), np.stack(want))
+        srcnn_frames = got
+        tuned[f"srcnn_replay_b{bits}"] = (nat, 2 * iters, as_bytes(got))
+        ms[f"srcnn_replay_b{bits}"] = {
+            "native": host_ms(nat) / (2 * iters),
+            "plain": host_ms(plain) / (2 * iters)}
+
+    # the PNG writes: a DSGN frame cropped to 375 x 1242 in place, and a
+    # Stereo R-CNN frame at 600 x 1984; the plain writer takes a copy, as
+    # save_image did
+    out_dir = os.path.join(tmp, "replay_png")
+    os.makedirs(out_dir, exist_ok=True)
+    h, w = sample.orig_hw
+    sizes = {}
+    for name, img in (("png_dsgn", dsgn_frames[0][-1, 0, :h, :w]),
+                      ("png_srcnn", srcnn_frames[0][-1, 0])):
+        nat_path = os.path.join(out_dir, name + "_native.png")
+        plain_path = os.path.join(out_dir, name + "_zlib.png")
+        def write(path=nat_path, img=img):
+            PS.png_store_write(path, img)
+        ms[name] = {
+            "native": host_ms(write),
+            "plain": host_ms(lambda: K.write_png(
+                plain_path, np.ascontiguousarray(img), 0))}
+        decoded = []
+        for path in (nat_path, plain_path):
+            with open(path, "rb") as f:
+                decoded.append(K.decode_png_rgb(f.read()))
+        with open(nat_path, "rb") as f:
+            tuned[name] = (write, 1, as_bytes(f.read()), nat_path)
+        same(name + "_pixels", decoded[0], img)
+        same(name + "_pixels_zlib", decoded[1], img)
+        sizes[name] = {"shape": list(img.shape),
+                       "bytes_native": os.path.getsize(nat_path),
+                       "bytes_zlib": os.path.getsize(plain_path)}
+    check(q0l.shape[1:3] == (600, 1984), f"srcnn frame {q0l.shape}")
+    # a saturated frame: every scanline sums to the most adler32 can hold
+    white = np.full((600, 1984, 3), 255, np.uint8)
+    PS.png_store_write(os.path.join(out_dir, "white.png"), white)
+    with open(os.path.join(out_dir, "white.png"), "rb") as f:
+        same("png_white_pixels", K.decode_png_rgb(f.read()), white)
+
+    # the same native stages built at -O3 alone, the collision core's
+    # flags: what -march=native (native_build.TUNED_FLAGS) buys on this
+    # host, for the same bytes
+    with o3_builds(os.path.join(tmp, "build_o3")):
+        for name, (fn, per, ref, *path) in tuned.items():
+            out = fn()
+            if path:
+                with open(path[0], "rb") as f:
+                    out = f.read()
+            same(name + "_o3", as_bytes(out), ref)
+            ms[name]["native_o3"] = host_ms(fn) / per
+
+    # one pair's host work at SRCNN_ITERS iterations, the sweep's common
+    # case (1-bit planes): DSGN replays both sides and writes (iters + 1)
+    # PNG pairs; Stereo R-CNN also resizes both sides
+    n_png = 2 * (iters + 1)
+    pair = {}
+    for way in ("native", "native_o3", "plain"):
+        pair[way] = {
+            "dsgn": 2 * iters * ms["dsgn_replay_b1"][way]
+            + n_png * ms["png_dsgn"][way],
+            "srcnn": 2 * ms["srcnn_resize_q0"][way]
+            + 2 * iters * ms["srcnn_replay_b1"][way]
+            + n_png * ms["png_srcnn"][way]}
+    return {"equal": equal, "host_ms": ms, "png": sizes,
+            "host_ms_per_pair": pair, "iters": iters}
+
+
+def replay_record(host, dsgn_steady, srcnn_steady, card):
+    """The `replay` line: the host stages of `replay_host_stages` beside
+    the card's time per pair at the same iterations, from each detector's
+    steady-state attack iteration."""
+    iters = host["iters"]
+    card_ms = {"dsgn": dsgn_steady["attack_iter_ms"] * iters,
+               "srcnn": srcnn_steady["attack_iter_ms"] * iters}
+    return {**host, "card_ms_per_pair": card_ms,
+            "host_per_card": {
+                way: {d: host["host_ms_per_pair"][way][d] / card_ms[d]
+                      for d in card_ms}
+                for way in ("native", "native_o3", "plain")},
+            "clock": "host perf_counter, median of 5: host times on the "
+                     "card machine's CPU, not the card's",
+            "card": card}
 
 
 # --------------------------------------------------------------- phase 9
@@ -4073,8 +4375,10 @@ def main():
         # 8. the Stereo R-CNN attack over the same frames; 9. its predict
         # over the attacked sweep and the clean frames, and its patch
         # attack
-        srcnn_launches = stereo_rcnn_phase(tmp, dev, card)
+        srcnn_launches, srcnn_steady = stereo_rcnn_phase(tmp, dev, card)
         lap("8_srcnn_attack")
+        replay_host = replay_host_stages(tmp)
+        lap("8_replay")
         sp_launches, sp_pairs, spatch_launches, spatch_steps = \
             srcnn_predict_patch_phase(tmp, dev, card)
         lap("9_srcnn_predict_patch")
@@ -4089,8 +4393,10 @@ def main():
         safety_phase(tmp, card)
         lap("12_safety")
     torch.cuda.empty_cache()
-    steady_state(full, dev, card)
+    dsgn_steady = steady_state(full, dev, card)
     lap("4_attack_steady_state")
+    log(json.dumps({"replay": replay_record(replay_host, dsgn_steady,
+                                            srcnn_steady, card)}))
 
     # the slice launched each kernel at exactly the shapes phase 2 timed
     # (all in the model's dtype), the same number of times per iteration

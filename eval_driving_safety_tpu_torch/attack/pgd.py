@@ -9,9 +9,12 @@ Sign trajectories: the update is a deterministic function of the clean
 pair and the per-iteration gradient signs. `alpha * sign` is an exact f32
 product and every other update op (add, sub, clamp) one correctly rounded
 f32 op, so replaying the rule on the host from the packed signs
-reproduces every device iterate bit-exactly (`replay_pgd`,
-`replay_pgd_255`, and `replay_pgd_ints` for the Stereo R-CNN's integer
-v-space). The packed bytes are identical to the JAX package's
+reproduces every device iterate bit-exactly (`replay_pgd`). Where the
+iterates lie on a half-integer grid the sweep replays them natively in
+doubled integers (attack.replay_native.replay_sweep_u8); its plain
+versions here, for the tests, are `replay_pgd_255` (DSGN's 255-space)
+and `replay_pgd_ints` (the Stereo R-CNN's integer v-space). The packed
+bytes are identical to the JAX package's
 (`pack_signs`: four 2-bit codes s+1 per byte, LSB first; `pack_bits`:
 LSB-first 1-bit planes), so the on-disk contract and the replay carry over.
 """

@@ -8,11 +8,12 @@ packed gradient signs come back, from which the host replays every
 iterate bit-exactly.
 
 DSGN attacks in 255-space (clean = the exact pixels as f32, unit step,
-ball 76.5 = 0.3 * 255) and replays in int16. Stereo R-CNN attacks in
-v-space, the integer scale of the exact resize to 600 rows (clean = den_h
-* den_w * 255 * bgr01, data.exact_resize), with --alpha/--eps in BGR
-pixel units scaled per frame by den_h * den_w; it replays in int32 where
-attack.pgd.srcnn_replay_intable holds, else in f32.
+ball 76.5 = 0.3 * 255). Stereo R-CNN attacks in v-space, the integer
+scale of the exact resize to 600 rows (clean = den_h * den_w * 255 *
+bgr01, data.exact_resize), with --alpha/--eps in BGR pixel units scaled
+per frame by den_h * den_w. Both replay natively on the doubled integer
+grid (attack.replay_native) where it is exact (attack.pgd.replay_255_valid,
+srcnn_replay_intable), else in f32, and write stored-mode PNGs natively.
 
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.pgd_attack --detector dsgn \\
@@ -196,8 +197,8 @@ SRCNN_DRAW_SEED = 11
 
 def run_srcnn(args):
     from eval_driving_safety_tpu_torch.attack.pgd import (
-        pgd_attack, replay_pgd, replay_pgd_ints, signs1_to_packed2,
-        srcnn_replay_intable)
+        pgd_attack, replay_pgd, signs1_to_packed2, srcnn_replay_intable)
+    from eval_driving_safety_tpu_torch.attack import replay_native
     from eval_driving_safety_tpu_torch.data.dataset import (
         fetch_packed_signs, prepare_srcnn_batch_u8, quantize_v_rgb_u8,
         save_sweep, srcnn_cleanv_device, srcnn_cleanv_q0_host)
@@ -248,18 +249,16 @@ def run_srcnn(args):
         v2l, v2r, q0l, q0r = srcnn_cleanv_q0_host(b)
         c255 = b["c255"]
         pl, pr, bits = fetch_packed_signs(pl, pr)
-        if bits == 1:
-            pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
         if intable:
-            half = np.float32(0.5)
-            frames = ((quantize_v_rgb_u8(a.astype(np.float32) * half, c255),
-                       quantize_v_rgb_u8(c.astype(np.float32) * half, c255))
-                      for a, c in replay_pgd_ints(
-                          v2l * 2, v2r * 2, pl, pr,
-                          alpha2=np.rint(2.0 * a_pix * K).astype(np.int64),
-                          eps2=np.rint(2.0 * e_pix * K).astype(np.int64),
-                          clip_max2=(510 * K).astype(np.int64)))
+            p2 = dict(alpha2=np.rint(2.0 * a_pix * K).astype(np.int64),
+                      eps2=np.rint(2.0 * e_pix * K).astype(np.int64),
+                      max2=(510 * K).astype(np.int64), c255=c255,
+                      flip_channels=True, bits=bits)
+            frames = zip(replay_native.replay_sweep_u8(v2l, pl, **p2),
+                         replay_native.replay_sweep_u8(v2r, pr, **p2))
         else:
+            if bits == 1:
+                pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
             frames = ((quantize_v_rgb_u8(a, c255), quantize_v_rgb_u8(c, c255))
                       for a, c in replay_pgd(
                           v2l.astype(np.float32), v2r.astype(np.float32),
@@ -303,9 +302,9 @@ def run_srcnn(args):
                 if not logged:
                     logged = True
                     log("host replay path: " + (
-                        "int32 (bit-exact integer grid)" if intable else
-                        "f32 per iteration (alpha/eps off the integer grid "
-                        "or values past the f32-exact bound)"))
+                        "native/int (bit-exact integer grid)" if intable
+                        else "f32 per-iteration (alpha/eps off the integer "
+                        "grid or values past the f32-exact bound)"))
                 if len(pending) >= _MAX_PENDING_REPLAYS:
                     pending.pop(0).result()
                 pending.append(replayer.submit(replay_job, b, traj[0],

@@ -7,7 +7,8 @@ dataset.py. Frames stay raw uint8 on the host; the device converts them
 (DSGN: the clean pair is exactly the loaded pixels; Stereo R-CNN: the
 exact integer resize of data.exact_resize), and only packed gradient
 signs come back, from which the host replays every iterate bit-exactly
-(attack.pgd) and writes `{prefix}_iters_{k}/image_{2,3}/<id>.png`.
+(attack.replay_native; attack.pgd holds the plain versions) and writes
+`{prefix}_iters_{k}/image_{2,3}/<id>.png`.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from eval_driving_safety_tpu_torch.attack import replay_native
 from eval_driving_safety_tpu_torch.config import (DSGNInputConfig,
                                                    SRCNNInputConfig)
 from eval_driving_safety_tpu_torch.data import kitti as K
@@ -207,20 +209,29 @@ def srcnn_cleanv_device(weights: Dict, img_u8: torch.Tensor) -> torch.Tensor:
     return (v2 * weights["wmask"][:, None, :, None]).to(torch.float32)
 
 
+def _frame_weights(batch_u8: Dict, i: int) -> tuple:
+    """Frame i's source size and the axis weights of its resize to network
+    scale, cropped to its width there: (oh, ow, wh, ww)."""
+    oh, ow = batch_u8["orig_hw"][i]
+    out_h, nw = batch_u8["net_hw"][i]
+    return (oh, ow, bilinear_axis_weights(oh, out_h),
+            bilinear_axis_weights(ow, int(round(ow * (out_h / oh))), crop=nw))
+
+
 def srcnn_cleanv_host(batch_u8: Dict) -> tuple:
     """The host twin of `srcnn_cleanv_device`, as int32 (the replay's
-    seeds): (v_left, v_right), each (B, H, W, 3)."""
+    seeds): (v_left, v_right), each (B, H, W, 3). numpy: the plain
+    version of the native resize in `srcnn_cleanv_q0_host`, for the
+    tests."""
     out_w = batch_u8["wmask"].shape[1]
     out = []
     for side in ("im_left_u8", "im_right_u8"):
         frames = []
-        for i, (oh, ow) in enumerate(batch_u8["orig_hw"]):
-            out_h, nw = batch_u8["net_hw"][i]
-            wh = bilinear_axis_weights(oh, out_h)
-            ww = bilinear_axis_weights(ow, int(round(ow * (out_h / oh))),
-                                       crop=nw)
-            x = np.zeros((out_h, out_w, 3), np.int32)
-            x[:, :nw] = resize_v2_host(batch_u8[side][i, :oh, :ow], wh, ww)
+        for i in range(len(batch_u8["orig_hw"])):
+            oh, ow, wh, ww = _frame_weights(batch_u8, i)
+            x = np.zeros((len(wh.i0), out_w, 3), np.int32)
+            x[:, :len(ww.i0)] = resize_v2_host(batch_u8[side][i, :oh, :ow],
+                                               wh, ww)
             frames.append(x)
         out.append(np.stack(frames))
     return out[0], out[1]
@@ -236,12 +247,23 @@ def srcnn_clean01_device(weights: Dict, img_u8: torch.Tensor) -> torch.Tensor:
 
 
 def srcnn_cleanv_q0_host(batch_u8: Dict) -> tuple:
-    """`srcnn_cleanv_host` and the quantized clean frames (iteration 0):
+    """`srcnn_cleanv_host` and the quantized clean frames (iteration 0),
+    each frame in one native pass (`attack.replay_native.resize_v2_q0`):
     (v_left, v_right, q_left, q_right)."""
-    vl, vr = srcnn_cleanv_host(batch_u8)
-    c255 = batch_u8["c255"]
-    return vl, vr, quantize_v_batch_u8(vl, c255), \
-        quantize_v_batch_u8(vr, c255)
+    out_w = batch_u8["wmask"].shape[1]
+    c255 = np.asarray(batch_u8["c255"], np.float32).reshape(-1)
+    vs, qs = [], []
+    for side in ("im_left_u8", "im_right_u8"):
+        va, qa = [], []
+        for i in range(len(batch_u8["orig_hw"])):
+            oh, ow, wh, ww = _frame_weights(batch_u8, i)
+            v, q = replay_native.resize_v2_q0(batch_u8[side][i, :oh, :ow],
+                                              wh, ww, out_w, c255[i])
+            va.append(v)
+            qa.append(q)
+        vs.append(np.stack(va))
+        qs.append(np.stack(qa))
+    return vs[0], vs[1], qs[0], qs[1]
 
 
 def quantize_v_rgb_u8(x_v, c255):
@@ -262,7 +284,8 @@ def quantize_v_rgb_u8(x_v, c255):
 
 
 def quantize_v_batch_u8(v_i32: np.ndarray, c255) -> np.ndarray:
-    """(B, H, W, 3) int32 v-space frames -> truncated RGB uint8."""
+    """(B, H, W, 3) int32 v-space frames -> truncated RGB uint8: the plain
+    version of `srcnn_cleanv_q0_host`'s clean frames, for the tests."""
     return quantize_v_rgb_u8(v_i32.astype(np.float32), c255)
 
 
@@ -390,17 +413,22 @@ def save_sweep_from_signs(batch: Dict, clean_l: np.ndarray,
     """Replay a packed sign trajectory from the host uint8 clean pair and
     save every iteration under `{prefix}_iters_{k}/image_{2,3}/` (k = 0 is
     the clean pair). A unit step with a half-integer ball in [0, 255]
-    replays in int16 (`replay_pgd_255`); anything else in f32."""
+    replays natively on the doubled grid from the 1- or 2-bit planes as
+    fetched (`attack.replay_native.replay_sweep_u8`); anything else in
+    f32 (`attack.pgd.replay_pgd`)."""
     from eval_driving_safety_tpu_torch.attack.pgd import (replay_255_valid,
                                                           replay_pgd,
-                                                          replay_pgd_255,
                                                           signs1_to_packed2)
     pl, pr, bits = fetch_packed_signs(packed_l, packed_r)
-    if bits == 1:
-        pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
     if replay_255_valid(alpha, eps, clip_min, clip_max):
-        frames = replay_pgd_255(clean_l, clean_r, pl, pr, eps=eps)
+        e2 = int(round(2 * float(eps)))
+        frames = zip(*(replay_native.replay_sweep_u8(
+            clean.astype(np.int32), packed, alpha2=2, eps2=e2, max2=510,
+            c255=1.0, flip_channels=False, bits=bits)
+            for clean, packed in ((clean_l, pl), (clean_r, pr))))
     else:
+        if bits == 1:
+            pl, pr = signs1_to_packed2(pl), signs1_to_packed2(pr)
         frames = ((np.clip(xl, 0, 255).astype(np.uint8),
                    np.clip(xr, 0, 255).astype(np.uint8))
                   for xl, xr in replay_pgd(

@@ -4,7 +4,8 @@ Counterpart of eval_driving_safety_tpu/data/kitti.py for the attack,
 training and predict paths, with the same file formats. Images are read with cv2
 or PIL when one is installed, else with the small PNG decoder here
 (8-bit RGB/RGBA, non-interlaced, all five row filters); they are written
-as PNGs by zlib alone, so the sweep needs neither library.
+as PNGs by the native stored-mode encoder at level 0 and by zlib at other
+levels, so the sweep needs neither library.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from eval_driving_safety_tpu_torch.data import png_store
 
 
 @dataclass
@@ -278,8 +281,9 @@ def _png_chunk(tag: bytes, payload: bytes) -> bytes:
 
 def write_png(path: str, arr: np.ndarray, compress_level: int = 0) -> None:
     """Write (H, W, 3) uint8 RGB as a PNG with zlib alone: filter-0 rows,
-    deflated at `compress_level` (0 = stored blocks, the fastest; every
-    level holds identical pixels)."""
+    deflated at `compress_level` (0 = stored blocks; every level holds
+    identical pixels). At level 0 it is the plain version of the native
+    writer `save_image` uses there."""
     arr = np.asarray(arr)
     h, w, c = arr.shape
     if c != 3 or arr.dtype != np.uint8:
@@ -300,11 +304,18 @@ def save_image(path: str, img: np.ndarray, crop_hw: Optional[tuple] = None,
                compress_level: int = 0) -> None:
     """Save an RGB image as PNG, cropped to `crop_hw` (the frame's size
     before padding). uint8 input is taken as pixels; float input as [0,1]
-    RGB, truncated to uint8 as the JAX package's writer does."""
+    RGB, truncated to uint8 as the JAX package's writer does. Level 0
+    writes the crop in place through the native stored-mode encoder
+    (data.png_store.png_store_write, the JAX package's bytes);
+    other levels deflate with `write_png`."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = np.clip(arr * 255.0, 0, 255).astype(np.uint8)
     if crop_hw is not None:
         arr = arr[:crop_hw[0], :crop_hw[1]]
-    write_png(path, np.ascontiguousarray(arr), compress_level)
+    if compress_level == 0 and (arr.ndim == 2 or (arr.ndim == 3
+                                                  and arr.shape[-1] == 3)):
+        png_store.png_store_write(path, arr)
+    else:
+        write_png(path, np.ascontiguousarray(arr), compress_level)

@@ -7,19 +7,17 @@ obstacles' boxes at the same time step; over a solution folder the
 collisions are counted and `collision.txt` holds their number.
 
 `native/collision.cpp` is built with `g++ -O3 -shared -fPIC`, the JAX
-package's flags, at its first use (never at import) into `_build/`,
-named by a hash of the source and the command, under a temporary name
-that is then renamed into place, so concurrent builders leave one whole
-library. A build or load that fails raises with the reason: nothing
-falls back to another implementation. `first_collision_arrays_plain` is
-the same test in numpy, for the tests.
+package's flags, at its first use (never at import) into `_build/` by
+`utils/native_build.py`, which the sweep's two libraries share: named
+by a hash of the source and the command, renamed into place, and a
+build or load that fails raises with the reason, with nothing falling
+back to another implementation. `first_collision_arrays_plain` is the
+same test in numpy, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
@@ -29,10 +27,10 @@ import numpy as np
 from eval_driving_safety_tpu_torch.safety.commonroad_io import (
     Scenario, Trajectory, read_scenario, read_solution)
 from eval_driving_safety_tpu_torch.safety.vehicle import BMW320I
+from eval_driving_safety_tpu_torch.utils import native_build
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "native" / "collision.cpp"
-BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCE = native_build.NATIVE_DIR / "collision.cpp"
+BUILD_DIR = native_build.BUILD_DIR
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
@@ -42,26 +40,7 @@ _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"collision-{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
-                        ".tmp.so")
-    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot build the collision core: {' '.join(cmd)}"
-                           f" could not run ({e})") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"cannot build the collision core: {' '.join(cmd)}"
-                           f" exited {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, out)
+    return native_build.library_path(SOURCE, BUILD_DIR, CXX, CXX_FLAGS)
 
 
 def native():
@@ -72,14 +51,8 @@ def native():
         return _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise RuntimeError(
-                    f"cannot load the collision core {path}: {e}") from e
+            lib = native_build.load(SOURCE, BUILD_DIR, CXX, CXX_FLAGS,
+                                    "the collision core")
             lib.obb_intersect.argtypes = (_P, _P)
             lib.obb_intersect.restype = _I
             lib.trajectory_first_collision.argtypes = (_P, _I, _P, _I, _P,

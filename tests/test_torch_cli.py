@@ -73,7 +73,7 @@ def test_cli_srcnn_tiny_layout_transfers_and_resume(tmp_path, capsys):
     common = ["--data_path", data, "--detector", "srcnn", "--tiny",
               "--iter", str(n), "--device", "cpu"]
     main(common + ["--out_prefix", str(tmp_path / "s" / "stereo_rcnn_pgd")])
-    assert "host replay path: int32" in capsys.readouterr().out
+    assert "host replay path: native/int" in capsys.readouterr().out
     main(common + ["--out_prefix", str(tmp_path / "f" / "stereo_rcnn_pgd"),
                    "--transfer", "full", "--sync_io"])
     files = _sweep_files(tmp_path / "s")
@@ -111,6 +111,114 @@ def test_cli_srcnn_tiny_layout_transfers_and_resume(tmp_path, capsys):
                    "--resume"])
     assert "losses" not in capsys.readouterr().out
     assert last.stat().st_mtime_ns == stamp
+
+
+def _numpy_signs(traj):
+    """A sweep's sign trajectory side as the CLI hands it to the replay
+    (a tensor, or a collect="signs1" tuple of tensors) -> numpy."""
+    if isinstance(traj, tuple):
+        return tuple(t.numpy() for t in traj)
+    return traj.numpy()
+
+
+@pytest.mark.parametrize("detector", ["dsgn", "srcnn"])
+def test_cli_signs_sweep_is_native_and_writes_the_jax_package_bytes(
+        tmp_path, monkeypatch, capsys, detector):
+    """The --transfer signs sweep of each detector replays through
+    replay_sweep_u8 and writes through png_store_write only (the numpy
+    replays and the zlib writer raise if reached), and writes the bytes of
+    its --transfer full run and of the JAX package's replay and writer
+    (its native sweep library) on the same packed signs."""
+    from eval_driving_safety_tpu.attack import replay_native as JR
+    from eval_driving_safety_tpu.data import dataset as jds
+
+    from eval_driving_safety_tpu_torch.attack import pgd as P
+    from eval_driving_safety_tpu_torch.attack import replay_native as R
+    from eval_driving_safety_tpu_torch.data import dataset as D
+    from eval_driving_safety_tpu_torch.data import png_store as PS
+    ids = ["000001", "000002"]
+    data = str(tmp_path / "kitti")
+    _kitti_dir(data, ids)
+    n = 2
+
+    def refuse(*a, **k):
+        raise AssertionError("the sweep reached a plain version")
+    for mod, name in ((P, "replay_pgd_255"), (P, "replay_pgd_ints"),
+                      (P, "replay_pgd"), (K, "write_png")):
+        monkeypatch.setattr(mod, name, refuse)
+    calls = {"replay_sweep_u8": [], "png_store_write": 0}
+    replay, png = R.replay_sweep_u8, PS.png_store_write
+
+    def counted_replay(*a, **k):
+        calls["replay_sweep_u8"].append(k.get("bits", 2))
+        return replay(*a, **k)
+
+    def counted_png(*a, **k):
+        calls["png_store_write"] += 1
+        return png(*a, **k)
+    monkeypatch.setattr(R, "replay_sweep_u8", counted_replay)
+    monkeypatch.setattr(PS, "png_store_write", counted_png)
+    fetched = []
+    fetch = D.fetch_packed_signs
+
+    def recorded_fetch(pl, pr):
+        fetched.append((_numpy_signs(pl), _numpy_signs(pr)))
+        return fetch(pl, pr)
+    monkeypatch.setattr(D, "fetch_packed_signs", recorded_fetch)
+
+    prefix = "dsgn_pgd" if detector == "dsgn" else "stereo_rcnn_pgd"
+    common = ["--data_path", data, "--detector", detector, "--iter", str(n),
+              "--device", "cpu"] + (["--scale", "tiny"] if detector == "dsgn"
+                                    else ["--tiny"])
+    main(common + ["--out_prefix", str(tmp_path / "s" / prefix)])
+    n_files = len(ids) * 2 * (n + 1)
+    assert len(calls["replay_sweep_u8"]) == 2 * len(ids)
+    assert calls["png_store_write"] == n_files
+    if detector == "srcnn":
+        assert "host replay path: native/int" in capsys.readouterr().out
+    main(common + ["--out_prefix", str(tmp_path / "f" / prefix),
+                   "--transfer", "full", "--sync_io"])
+    assert calls["png_store_write"] == 2 * n_files
+    files = _sweep_files(tmp_path / "s")
+    assert len(files) == n_files and files == _sweep_files(tmp_path / "f")
+    for rel in files:
+        assert (tmp_path / "s" / rel).read_bytes() == \
+            (tmp_path / "f" / rel).read_bytes(), rel
+
+    # the JAX package's replay and writer on the signs the sweep fetched
+    assert JR.get_native() is not None, "the JAX package's library"
+    jset = jds.KittiStereoDataset(data)
+    writer = jds.AsyncImageWriter(compress_level=0)
+    jprefix = str(tmp_path / "j" / prefix)
+    try:
+        for i, (pl, pr) in enumerate(fetched):
+            samples = [jset.get(i)]
+            if detector == "dsgn":
+                from eval_driving_safety_tpu.config import DSGNConfig
+                b = jds.prepare_dsgn_batch_u8(samples,
+                                              DSGNConfig.tiny().input)
+                jds.save_sweep_from_signs(
+                    b, b["im_left_u8"], b["im_right_u8"], pl, pr, jprefix,
+                    lambda x: x, writer, alpha=1.0, eps=76.5, clip_min=0.0,
+                    clip_max=255.0, space_255=True)
+                continue
+            b = jds.prepare_srcnn_batch_u8(samples,
+                                           jds.SRCNNInputConfig(96, 320))
+            v2l, v2r, q0l, q0r = jds.srcnn_cleanv_q0_host(b)
+            jl, jr, bits = jds.fetch_packed_signs(pl, pr)
+            K2 = b["den_h"].astype(np.int64) * b["den_w"]
+            kw = dict(alpha2=2 * K2, eps2=153 * K2, max2=510 * K2,
+                      c255=b["c255"], flip_channels=True, bits=bits)
+            frames = zip(JR.replay_sweep_u8(v2l, jl, **kw),
+                         JR.replay_sweep_u8(v2r, jr, **kw))
+            jds.save_sweep(b, (q0l, q0r), frames, jprefix, lambda x: x,
+                           writer)
+    finally:
+        writer.close()
+    assert _sweep_files(tmp_path / "j") == files
+    for rel in files:
+        assert (tmp_path / "s" / rel).read_bytes() == \
+            (tmp_path / "j" / rel).read_bytes(), rel
 
 
 def test_cli_srcnn_off_grid_step_replays_in_f32(tmp_path, capsys):
