@@ -152,6 +152,18 @@ Phases (any failure ends the run with a non-zero exit):
      scenarios, solved and colliding, the five metrics, each stage's
      seconds, planning ms a scenario (median, p90, max) and expansions,
      all on the card machine's host CPU.
+  13. the batch split over torch.distributed (parallel/sharding.py) on
+     phase 4's two frames at --batch 2: the DSGN signs sweep and patch at
+     --scale paper and the Stereo R-CNN sweep at StereoRCNNConfig(), each
+     as one process and as two gloo ranks sharing the card (the card's
+     machine has one H100; NCCL refuses two ranks on one device, and no
+     speed-up can be shown): every rank exits 0, every file is written
+     once, by the rank of its frame, the ranks' patches are the same
+     bits, and each DSGN rank launches K1-K4 at phase 2's (per-rank)
+     shapes; whether the files equal the one process's is printed, with
+     the differing pixels and where this process's first step differs
+     between the batch of 2 and each row alone with the batch's
+     normalizers (`split`).
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -4288,6 +4300,463 @@ def safety_phase(tmp, card):
     log(json.dumps({"safety_pipeline": rec}))
     return rec
 
+# the torchrun variables of a rank (parallel.sharding.TORCHRUN_ENV and
+# LOCAL_WORLD_SIZE)
+RANK_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+            "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port():
+    """A localhost port that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(world, argv, timeout, env=None, cwd=None):
+    """Run the command `argv` as `world` processes with the torchrun
+    environment of one host (a free localhost port; `world` 1 runs it
+    once without that environment, as one process runs). Waits at most
+    `timeout` seconds in all and kills every process still running then;
+    a launch whose rank 0 found the port taken is made once more on
+    another. Returns [(exit code, stdout, stderr)] by rank, -9 for a
+    killed process. Output goes through files, so that no rank blocks on
+    a full pipe while another waits for it in a collective."""
+    base = {k: v for k, v in (env or os.environ).items() if k not in RANK_ENV}
+    for attempt in range(2):
+        port = free_port()
+        procs = []
+        for r in range(world):
+            e = dict(base)
+            if world > 1:
+                e.update(WORLD_SIZE=str(world), RANK=str(r),
+                         LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            procs.append((subprocess.Popen(argv, env=e, cwd=cwd, stdout=out,
+                                           stderr=err), out, err))
+        deadline = time.monotonic() + timeout
+        results = []
+        for p, out, err in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                for q, _, _ in procs:
+                    q.kill()
+                p.wait()
+            texts = []
+            for f in (out, err):
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+            results.append((p.returncode, *texts))
+        taken = any("EADDRINUSE" in err or "address already in use" in err
+                    for _, _, err in results)
+        if not (taken and attempt == 0):
+            return results
+
+
+def rank_run(report, module, args):
+    """One rank of a launch (`python3 chip_smoke.py --rank-run REPORT
+    MODULE ARGS...`): run the CLI `MODULE`'s main(ARGS) in this process
+    and write to REPORT ("{rank}" in it replaced by the rank) what the
+    run wrote (every PNG through data.kitti.save_image, every .npy
+    through numpy.save, by path), the port's kernel launches by kernel
+    and by (kernel, shape, dtype), and the patch that a patch CLI's
+    epoch loop returned on this rank (as a list). Needs no card."""
+    import collections
+    import importlib
+    import threading
+
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from eval_driving_safety_tpu_torch.data import kitti as K
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    cli = importlib.import_module(module)
+    writes, lock, patches = collections.Counter(), threading.Lock(), []
+    save_image, save_npy = K.save_image, np.save
+
+    def counted(fn):
+        def call(path, *a, **k):
+            with lock:
+                writes[os.path.abspath(str(path))] += 1
+            return fn(path, *a, **k)
+        return call
+    K.save_image, np.save = counted(save_image), counted(save_npy)
+    if hasattr(cli, "train_patch"):
+        train_patch = cli.train_patch
+
+        def recorded(*a, **k):
+            patches.append(train_patch(*a, **k))
+            return patches[-1]
+        cli.train_patch = recorded
+    _cuda.reset_launches()
+    cli.main(args)
+    rank = int(os.environ.get("RANK", "0"))
+    with open(report.replace("{rank}", str(rank)), "w") as f:
+        json.dump({"rank": rank, "writes": dict(writes),
+                   "launches": dict(_cuda.launches),
+                   "launch_shapes": [[k, list(s), str(dt), n] for (
+                       k, s, dt), n in _cuda.launch_shapes.items()],
+                   "patch": [p.cpu().tolist() for p in patches]}, f)
+    return 0
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of `obj` for the block, and restore them after."""
+    saved = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(obj, k, v)
+
+
+def dsgn_first_step(data, dev, scale, depth_dir=None):
+    """The DSGN sweep as the CLI sets it up at --batch 2 over the frames
+    000001-2 of `data` (seeded weights at `scale`, depth ground truth from
+    `depth_dir` or none): (clean left, clean right, loss(rows, left,
+    right), step(rows, clean, sign) -> the first iterate's saved uint8
+    RGB pixels, the module whose `global_sum` the loss calls, each frame's
+    saved size)."""
+    from argparse import Namespace
+
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack import objectives as O
+    from eval_driving_safety_tpu_torch.cli.common import (make_dsgn_cfg,
+                                                         make_dsgn_model)
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, dsgn_boxes3d, prepare_dsgn_batch_u8)
+    from eval_driving_safety_tpu_torch.models import rpn3d_loss
+    cfg = make_dsgn_cfg(Namespace(tiny=False, scale=scale, remat=False))
+    model = make_dsgn_model(Namespace(ckpt=None), cfg, dev)
+    ds = KittiStereoDataset(data)
+    samples = [ds.get(0), ds.get(1)]
+    b = prepare_dsgn_batch_u8(samples, cfg.input, depth_dir=depth_dir)
+    g = dsgn_boxes3d(samples)
+    mean, std = (torch.tensor(np.asarray(v) * 255.0, dtype=torch.float32,
+                              device=dev)
+                 for v in (cfg.input.mean, cfg.input.std))
+
+    def put(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype).to(dev)
+    calib = [put(b[k]) for k in ("f_u", "baseline", "c_u", "c_v")]
+    depth, boxes = put(b["depth_gt"]), put(g["boxes3d"])
+    num = put(g["num_boxes"], torch.int64)
+
+    def loss(rows, vl, vr):
+        out = model((vl - mean) / std, (vr - mean) / std,
+                    *(c[rows] for c in calib))
+        return O.total_loss(out, depth[rows], boxes[rows], num[rows], cfg)
+
+    def step(rows, clean, sign):          # the default unit step
+        return torch.clamp(clean + sign, 0.0, 255.0).to(torch.uint8)
+    return (put(b["im_left_u8"]).float(), put(b["im_right_u8"]).float(),
+            loss, step, rpn3d_loss, b["orig_hw"])
+
+
+def srcnn_first_step(data, dev, tiny=False):
+    """The Stereo R-CNN sweep as the CLI sets it up at --batch 2 (bf16,
+    seeded weights, the draws of seed 11 for the batch), in v-space, as
+    `dsgn_first_step` returns it."""
+    from argparse import Namespace
+
+    import torch
+    from eval_driving_safety_tpu_torch.cli.common import (make_srcnn_cfg,
+                                                         make_srcnn_model)
+    from eval_driving_safety_tpu_torch.cli.pgd_attack import SRCNN_DRAW_SEED
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, prepare_srcnn_batch_u8, quantize_v_rgb_u8,
+        srcnn_cleanv_device)
+    from eval_driving_safety_tpu_torch.models import stereo_rcnn as M
+    cfg = make_srcnn_cfg(Namespace(tiny=tiny), default_bf16=True,
+                         default_s2d=True)
+    model, uncert = make_srcnn_model(Namespace(ckpt=None), cfg, dev)
+    ds = KittiStereoDataset(data)
+    b = prepare_srcnn_batch_u8([ds.get(0), ds.get(1)], cfg.input)
+    gt = {k: v.to(dev) for k, v in M.make_gt_batch(
+        b["objects"], b["calibs"], cfg, image_scale=b["scales"]).items()}
+    draws = model.sample_draws(2, torch.Generator(device=dev).manual_seed(
+        SRCNN_DRAW_SEED))
+
+    def put(x):
+        return torch.as_tensor(x).to(dev)
+    weights = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
+                                      "wmask")}
+    means = torch.tensor(cfg.input.pixel_means_bgr, dtype=torch.float32,
+                         device=dev)
+    cb = put(b["c255"])[:, None, None, None]
+
+    def loss(rows, vl, vr):
+        out = model(vl * cb[rows] - means, vr * cb[rows] - means,
+                    gt={k: v[rows] for k, v in gt.items()},
+                    draws=type(draws)(*(d[rows] for d in draws)),
+                    mode="attack")
+        return M.total_attack_loss(out.losses, uncert)
+
+    # the default step of one BGR pixel, in v-space, and its bounds
+    scale = (weights["den_h"] * weights["den_w"]).float()[:, None, None,
+                                                            None]
+
+    c255 = put(b["c255"])
+
+    def step(rows, clean, sign):
+        return quantize_v_rgb_u8(torch.clamp(
+            clean + scale[rows] * sign, torch.zeros_like(scale[rows]),
+            255.0 * scale[rows]), c255[rows])
+    return (srcnn_cleanv_device(weights, put(b["im_left_u8"])),
+            srcnn_cleanv_device(weights, put(b["im_right_u8"])), loss, step,
+            M, b["net_hw"])
+
+
+def first_step_frames(setup):
+    """A sweep's first iterate, in this process, with its two rows
+    computed as one batch and with each row computed alone with the
+    batch's normalizers (each row's counts recorded in a first pass, their
+    sums returned in a second; row means over both rows): {(frame id,
+    right view): (batched, alone)}, the saved (h, w, 3) uint8 RGB pixels
+    of each, as one process and as two ranks write them at iteration 1.
+    `setup` is `dsgn_first_step`'s or `srcnn_first_step`'s."""
+    import torch
+    clean_l, clean_r, loss, step, module, sizes = setup
+
+    def signs(rows):
+        vl, vr = (c[rows].detach().requires_grad_(True)
+                  for c in (clean_l, clean_r))
+        return [step(rows, c[rows], torch.sign(g)) for c, g in zip(
+            (clean_l, clean_r), torch.autograd.grad(loss(rows, vl, vr),
+                                                    (vl, vr)))]
+
+    batched = signs(slice(0, 2))
+    counts = {0: [], 1: []}
+    for rank in (0, 1):
+        with patched(module, global_sum=lambda x, r=rank: counts[r].append(
+                x.detach().clone()) or x):
+            signs(slice(rank, rank + 1))
+    alone = []
+    for rank in (0, 1):
+        sums = iter([a + b for a, b in zip(counts[0], counts[1])])
+        mean = {"global_mean": lambda x: x.sum() / (x.numel() * 2)} \
+            if hasattr(module, "global_mean") else {}
+        with patched(module, global_sum=lambda x: next(sums), **mean):
+            alone.append(signs(slice(rank, rank + 1)))
+    out = {}
+    for row, fid in enumerate(("000001", "000002")):
+        h, w = sizes[row]
+        for side in (0, 1):
+            out[(fid, bool(side))] = tuple(
+                x[:h, :w].cpu().numpy()
+                for x in (batched[side][row], alone[row][side][0]))
+    return out
+
+
+def first_step_run(detector, data, out, tiny=False):
+    """`python3 chip_smoke.py --first-step DETECTOR DATA OUT [tiny]`:
+    `first_step_frames` for the sweep of `detector` over DATA's first two
+    frames in this process, with the CLIs' deterministic kernels, on the
+    card (the CPU with `tiny`); saved to OUT (.npz, keys "<frame id>_<0
+    left, 1 right>_<0 batched, 1 alone>")."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from eval_driving_safety_tpu_torch.cli.common import \
+        use_deterministic_kernels
+    dev = torch.device("cpu" if tiny else "cuda")
+    use_deterministic_kernels(dev)
+    setup = (dsgn_first_step(data, dev, "tiny" if tiny else "paper")
+             if detector == "dsgn" else srcnn_first_step(data, dev, tiny))
+    np.savez(out, **{f"{fid}_{int(right)}_{k}": pair[k]
+                     for (fid, right), pair in first_step_frames(setup).items()
+                     for k in (0, 1)})
+    return 0
+
+
+# phase 13's runs: (CLI module, flags); "OUT" is the run's directory
+SPLIT_ITERS = 2
+SPLIT_RUNS = {
+    "dsgn_sweep": ("eval_driving_safety_tpu_torch.cli.pgd_attack", [
+        "--detector", "dsgn", "--scale", "paper", "--iter", str(SPLIT_ITERS),
+        "--batch", "2", "--out_prefix", "OUT/pgd"]),
+    "dsgn_patch": ("eval_driving_safety_tpu_torch.cli.patch_attack", [
+        "--detector", "dsgn", "--scale", "paper", "--epochs", "1",
+        "--iters", "2", "--batch", "2", "--save_dir", "OUT/patch"]),
+    "srcnn_sweep": ("eval_driving_safety_tpu_torch.cli.pgd_attack", [
+        "--detector", "srcnn", "--iter", str(SPLIT_ITERS), "--batch", "2",
+        "--out_prefix", "OUT/pgd"]),
+}
+ATTACK_KERNELS = ("psv_warp_fwd", "psv_warp_bwd", "depth_tap_conv_fwd",
+                  "depth_tap_conv_bwd")
+
+
+def tree_files(root):
+    """Every file under `root`, relative to it."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs
+                  if not f.startswith("report"))
+
+
+def split_phase(tmp, card, phase2, dtype, tiny=False):
+    """13. The batch split over torch.distributed (parallel/sharding.py)
+    on phase 4's two frames at --batch 2: the DSGN signs sweep and the
+    DSGN patch (1 epoch of 2 steps) at --scale paper and the Stereo R-CNN
+    sweep at StereoRCNNConfig(), each as one process and as two gloo
+    ranks sharing the card, all fresh processes (launch_ranks, rank_run;
+    the two launches of a run at once). Gates: every rank exits 0; every
+    file is written once, each frame's by its rank; the ranks' patches
+    are the same bits, the file's; each DSGN rank launches K1-K4 at phase
+    2's shapes (the per-rank batch of 1), no weight gradient, and Stereo
+    R-CNN no port kernel. Prints whether the files equal the one
+    process's, the differing pixels where they do not (cuDNN may pick
+    other algorithms at batch 1 than at batch 2: not gated), and where a
+    sweep's first step in a fresh process differs between the batch of 2
+    and each row alone with the batch's normalizers (`first_step_run`),
+    and whether those first iterates are the ones each wrote. One card runs at most 2
+    ranks, over gloo: no speed-up. `tiny` rehearses the phase on the CPU
+    at the tiny configs, where no port kernel launches."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.data.kitti import load_image_u8
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "kitti")
+    rec = {}
+    for name, (module, flags) in SPLIT_RUNS.items():
+        outs = [os.path.join(tmp, "split", name, f"w{w}") for w in (1, 2)]
+        if tiny:
+            flags = [{"paper": "tiny"}.get(f, f) for f in flags] + (
+                ["--tiny"] if name.startswith("srcnn") else []) + [
+                "--device", "cpu"]
+        torch.cuda.empty_cache()
+
+        def run(world):
+            out = outs[world - 1]
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            res = launch_ranks(world, [
+                sys.executable, os.path.abspath(__file__), "--rank-run",
+                os.path.join(out, "report{rank}.json"), module,
+                "--data_path", data] + [f.replace("OUT", out) for f in flags],
+                timeout=300, cwd=ROOT)
+            secs = time.perf_counter() - t0
+            for r, (rc, _, err) in enumerate(res):
+                check(rc == 0, f"split {name} w{world}: rank {r} exited "
+                      f"{rc}:\n{err[-4000:]}")
+            reports = []
+            for r in range(world):
+                with open(os.path.join(out, f"report{r}.json")) as f:
+                    reports.append(json.load(f))
+            return secs, reports, [o for _, o, _ in res]
+        def predict():
+            """`first_step_frames` in a fresh process, as the CLIs run."""
+            npz = os.path.join(tmp, "split", name, "first_step.npz")
+            res = launch_ranks(1, [
+                sys.executable, os.path.abspath(__file__), "--first-step",
+                name.split("_")[0], data, npz] + (["tiny"] if tiny else []),
+                timeout=300, cwd=ROOT)
+            check(res[0][0] == 0, f"split {name}: the first step exited "
+                  f"{res[0][0]}:\n{res[0][2][-4000:]}")
+            with np.load(npz) as z:
+                return {(fid, right): (z[f"{fid}_{int(right)}_0"],
+                                       z[f"{fid}_{int(right)}_1"])
+                        for fid in ("000001", "000002")
+                        for right in (False, True)}
+        with cf.ThreadPoolExecutor(3) as ex:
+            jobs = [ex.submit(run, 1), ex.submit(run, 2)] + (
+                [ex.submit(predict)] if name.endswith("sweep") else [])
+            (t1, _, log1), (t2, reports, log2) = (j.result()
+                                                  for j in jobs[:2])
+            first_step = jobs[2].result() if jobs[2:] else None
+        out1, out2 = outs
+        files = tree_files(out1)
+        check(files == tree_files(out2) and files,
+              f"split {name}: files {tree_files(out2)} != {files}")
+        writes = [{os.path.relpath(p, out2): n
+                   for p, n in rp["writes"].items()} for rp in reports]
+        check(not set(writes[0]) & set(writes[1])
+              and sorted([*writes[0], *writes[1]]) == files
+              and set(writes[0].values()) | set(writes[1].values()) == {1},
+              f"split {name}: writes {writes}, files {files}")
+        shapes = [{(k, tuple(sh)): dt for k, sh, dt, _ in rp["launch_shapes"]}
+                  for rp in reports]
+        if tiny:
+            pass
+        elif name.startswith("dsgn"):
+            for r, rp in enumerate(reports):
+                check(all(rp["launches"][k] > 0 for k in ATTACK_KERNELS)
+                      and rp["launches"]["depth_tap_conv_wgrad"] == 0
+                      and set(shapes[r]) == phase2
+                      and set(shapes[r].values()) == {str(dtype)},
+                      f"split {name} rank {r}: launches {rp['launches']}, "
+                      f"shapes {sorted(shapes[r])} != phase 2's")
+        else:
+            check(not any(n for rp in reports
+                          for n in rp["launches"].values()),
+                  f"split {name}: port kernels launched")
+        diff = {}
+        if name.endswith("patch"):
+            check(not writes[1], f"split {name}: rank 1 wrote {writes[1]}")
+            p0, p1 = (np.asarray(rp["patch"][0], np.float32)
+                      for rp in reports)
+            check(p0.tobytes() == p1.tobytes(),
+                  f"split {name}: the ranks' patches differ")
+            a, b = (np.load(os.path.join(o, "patch", "epoch1", "patch.npy"))
+                    for o in (out1, out2))
+            check(b[0].transpose(1, 2, 0).tobytes() == p0.tobytes(),
+                  f"split {name}: rank 0's file is not its patch")
+            diff = {"entries": int((a != b).sum()), "of": int(a.size),
+                    "max_abs": float(np.abs(a - b).max())}
+        else:
+            for r, fid in enumerate(("000001", "000002")):
+                check({os.path.basename(p) for p in writes[r]}
+                      == {fid + ".png"}, f"split {name}: rank {r} wrote "
+                      f"{sorted(writes[r])}")
+            masks = {}
+            for f in files:
+                a, b = (load_image_u8(os.path.join(o, f))
+                        for o in (out1, out2))
+                masks[f] = (a != b).any(-1)
+                if masks[f].any():
+                    diff[f] = int(masks[f].sum())
+            saved = {(fid, right): [load_image_u8(os.path.join(
+                o, "pgd_iters_1", "image_3" if right else "image_2",
+                fid + ".png")) for o in (out1, out2)]
+                for (fid, right) in first_step}
+            rec[name + "_first_step"] = {
+                "predicted_pixels": int(sum(
+                    (a != b).any(-1).sum() for a, b in first_step.values())),
+                "iteration_1_pixels": int(sum(
+                    (a != b).any(-1).sum() for a, b in saved.values())),
+                # the batch of 2 as one process wrote it, the rows alone as
+                # the two ranks did
+                "batched_is_world1": all(np.array_equal(
+                    first_step[k][0], saved[k][0]) for k in saved),
+                "alone_is_world2": all(np.array_equal(
+                    first_step[k][1], saved[k][1]) for k in saved)}
+        rec[name] = {
+            "bytes_equal": all(
+                open(os.path.join(out1, f), "rb").read()
+                == open(os.path.join(out2, f), "rb").read() for f in files),
+            "files": len(files), "differing": diff,
+            "world1_s": t1, "world2_s": t2,
+            "rank_launches": [rp["launches"] for rp in reports],
+            "world1_log": log1[0].strip().splitlines()[-2:],
+            "rank0_log": log2[0].strip().splitlines()[-2:]}
+    rec.update(phase_s=time.perf_counter() - t_phase, card=card,
+               note="one H100: world size <= 2 on one device, over gloo "
+                    "(NCCL refuses two ranks on one device); checks the "
+                    "split, shows no speed-up; each run's one process and "
+                    "two ranks at once")
+    log(json.dumps({"split": rec}))
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4392,6 +4861,9 @@ def main():
         # classifications, and on a corpus at the reference's size
         safety_phase(tmp, card)
         lap("12_safety")
+        # 13. the batch split over two gloo ranks on this card
+        split = split_phase(tmp, card, phase2, full.dtype)
+        lap("13_split")
     torch.cuda.empty_cache()
     dsgn_steady = steady_state(full, dev, card)
     lap("4_attack_steady_state")
@@ -4498,6 +4970,9 @@ def main():
             "launches_per_classifier_train_step":
                 cls_launches[name] / cls_steps,
             "launches_per_srcnn_train_step": st_launches[name] / st_steps,
+            # phase 13: each rank's launches in the split DSGN sweep
+            "split_sweep_rank_launches": [
+                r[name] for r in split["dsgn_sweep"]["rank_launches"]],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
@@ -4512,4 +4987,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-run"]:
+        sys.exit(rank_run(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--first-step"]:
+        sys.exit(first_step_run(*sys.argv[2:5], tiny=sys.argv[5:] == ["tiny"]))
     sys.exit(main())

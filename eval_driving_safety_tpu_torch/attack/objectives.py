@@ -12,6 +12,7 @@ import torch
 from eval_driving_safety_tpu_torch.config import DSGNConfig
 from eval_driving_safety_tpu_torch.models.rpn3d_loss import (depth_mask,
                                                              dsgn_total_loss)
+from eval_driving_safety_tpu_torch.parallel.sharding import global_sum
 
 
 def total_loss(outputs, depth_gt, boxes3d, num_boxes, cfg: DSGNConfig):
@@ -22,7 +23,7 @@ def total_loss(outputs, depth_gt, boxes3d, num_boxes, cfg: DSGNConfig):
 def depth_divergence(outputs, depth_gt, cfg: DSGNConfig):
     """Mean |pred - gt| over valid-depth pixels, summed over scales."""
     mask = depth_mask(depth_gt, cfg)
-    denom = torch.clamp_min(mask.sum().float(), 1.0)
+    denom = torch.clamp_min(global_sum(mask.sum().float()), 1.0)
     total = torch.zeros((), device=depth_gt.device)
     for pred in outputs["depth_preds"]:
         total = total + (torch.abs(pred - depth_gt) * mask).sum() / denom
@@ -33,7 +34,7 @@ def depth_shift(outputs, depth_gt, shift_m: float, cfg: DSGNConfig):
     """Negative L1 to (gt + shift_m): ascending it drives predictions to a
     systematic depth offset."""
     mask = depth_mask(depth_gt, cfg)
-    denom = torch.clamp_min(mask.sum().float(), 1.0)
+    denom = torch.clamp_min(global_sum(mask.sum().float()), 1.0)
     target = depth_gt + shift_m
     total = torch.zeros((), device=depth_gt.device)
     for pred in outputs["depth_preds"]:

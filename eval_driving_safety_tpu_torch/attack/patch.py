@@ -9,7 +9,9 @@ Counterpart of eval_driving_safety_tpu/attack/patch.py:
   -40*1.6 = -64 px;
 * composite img = (1-mask)*img + mask*patch, clipped at the image border;
 * update patch <- patch - clamp(0.5*alpha*g, -eps, eps), g the loss's
-  gradient with respect to the patch through both views' composites;
+  gradient with respect to the patch through both views' composites,
+  summed over the batch's rows in their order (over every rank where the
+  batch is split);
 * patches persist as npy in the reference's (1, 3, d, d) layout, so they
   are interchangeable between the two packages; a patch of another size
   is resized as cv2's INTER_LINEAR resizes.
@@ -22,6 +24,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from eval_driving_safety_tpu_torch.parallel.sharding import (gather_rows,
+                                                             global_sum)
 
 
 def patch_dim_for(short_side: int, ratio: float) -> int:
@@ -107,16 +112,29 @@ def patch_update_step(loss_fn: Callable, patch: torch.Tensor, imgs_left,
 
     loss_fn(imL, imR) -> scalar (the detector's loss toward the targeted
     labels, which the patch descends). The gradient reaches the patch
-    through both views' composites, summed over the batch. Returns
-    (new patch, detached; loss, detached)."""
-    p = patch.detach().requires_grad_(True)
-    loss = loss_fn(composite_patch_batch(imgs_left, p, centers_left),
-                   composite_patch_batch(imgs_right, p, centers_right))
-    (g,) = torch.autograd.grad(loss, p)
+    through both views' composites. Each row's gradient is taken on its
+    own, and the rows' gradients are added in the global batch's row
+    order: where the batch is split over ranks (`parallel.sharding`),
+    they are gathered from every rank first, so each rank holds the patch
+    of one process bit for bit. Returns (new patch, detached; the whole
+    batch's loss, detached)."""
+    rows = [patch.detach().clone().requires_grad_(True)
+            for _ in range(len(imgs_left))]
+
+    def composite(imgs, centers):
+        centers = np.asarray(torch.as_tensor(centers).cpu())
+        return torch.stack([composite_patch(im, p, ctr)
+                            for im, p, ctr in zip(imgs, rows, centers)])
+    loss = loss_fn(composite(imgs_left, centers_left),
+                   composite(imgs_right, centers_right))
+    grads = gather_rows(torch.stack(torch.autograd.grad(loss, rows)))
+    g = grads[0]
+    for row in grads[1:]:
+        g = g + row
     new_patch = patch.detach() - torch.clamp(0.5 * alpha * g, -eps, eps)
     if pixel_min is not None:
         new_patch = torch.clamp(new_patch, pixel_min, pixel_max)
-    return new_patch, loss.detach()
+    return new_patch, global_sum(loss.detach())
 
 
 def init_patch(short_side: int, ratio: float, save_dir: str = None):

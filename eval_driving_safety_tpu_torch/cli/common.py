@@ -3,6 +3,7 @@ configs and weights."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -267,7 +268,26 @@ def use_deterministic_kernels(device) -> None:
 
 
 def log(msg: str):
-    print(msg, flush=True)
+    """Print `msg`; in a torchrun launch of several ranks, rank 0 alone
+    prints."""
+    if os.environ.get("RANK", "0") == "0":
+        print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def process_group(args):
+    """Around a CLI's run: join the torchrun launch this process belongs
+    to (`parallel.sharding.init_process_group`; without torchrun a world
+    of one), point `args.device` at the rank's device (`cuda` becomes
+    card LOCAL_RANK; `cpu` stays), and leave the group after the run,
+    which has finished its writes by then. Yields the rank's Mesh."""
+    from eval_driving_safety_tpu_torch.parallel import sharding
+    mesh = sharding.init_process_group(args.device)
+    args.device = str(mesh.device)
+    try:
+        yield mesh
+    finally:
+        sharding.destroy_process_group()
 
 
 def metrics_path(out_dir: str) -> str:

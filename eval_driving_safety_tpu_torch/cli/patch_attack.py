@@ -26,6 +26,13 @@ at every visit of a batch. Centres are drawn from a `torch.Generator`
 seeded by (seed, epoch, batch): the same flags give the same patches,
 though not the JAX CLI's draws.
 
+Under `torchrun --nproc_per_node N` a batch whose size divides by N is
+split over the ranks (parallel.sharding): each rank prepares the global
+batch, takes its rows of it, of its centres and of the samplers' draws,
+and caches only those; the loss's normalizers, the patch gradient and the
+epoch's loss are the global batch's, so every rank holds the patch of one
+process, which rank 0 writes. Other batch sizes run whole on every rank.
+
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.patch_attack --detector dsgn \\
       --data_path KITTI/object/training --split_file train.txt \\
@@ -46,8 +53,10 @@ from eval_driving_safety_tpu_torch.attack.patch import (
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, add_scale_args, log, make_dataset,
     make_dsgn_cfg, make_dsgn_model, make_srcnn_cfg, make_srcnn_model,
-    use_deterministic_kernels, use_srcnn_precision)
+    process_group, use_deterministic_kernels, use_srcnn_precision)
 from eval_driving_safety_tpu_torch.config import PatchConfig
+from eval_driving_safety_tpu_torch.parallel.sharding import (
+    dp_sharding, rank_zero_first, shard_batch)
 
 # the most bytes of u8 frames the epoch cache keeps on the card
 _CACHE_LIMIT = 2 << 30
@@ -100,37 +109,47 @@ def batch_generator(seed: int, epoch: int, batch_index: int):
     return torch.Generator().manual_seed(int(state.generate_state(1)[0]))
 
 
-def train_patch(args, ds, patch, save_dir, epochs, frame_bytes, upload,
-                batch_steps):
-    """The epoch loop of both detectors: each batch of `ds` is uploaded
-    (`upload(samples)` -> a dict of device tensors) and, while the split's
-    frames take at most `_CACHE_LIMIT` bytes (`frame_bytes` each), kept
-    on the card for the later epochs; `batch_steps(patch, item, gen)`
-    runs the batch's --iters steps with the centres of `gen` and returns
-    (patch, last loss). The patch is saved after every epoch."""
+def train_patch(args, mesh, ds, patch, save_dir, epochs, frame_bytes,
+                upload, batch_steps):
+    """The epoch loop of both detectors: each batch of `ds` is split over
+    the ranks (`parallel.sharding.dp_sharding`), its rows uploaded
+    (`upload(samples, sharding)` -> a dict of device tensors) and, while
+    the split's frames take at most `_CACHE_LIMIT` bytes (`frame_bytes`
+    each), kept on the card for the later epochs;
+    `batch_steps(patch, item, sharding, gen)` runs the batch's --iters
+    steps with the centres `gen` draws for the global batch and returns
+    (patch, the global batch's last loss). The patch, the same on every
+    rank, is saved by rank 0 after every epoch."""
     est = len(ds) * frame_bytes
     use_cache = est <= _CACHE_LIMIT
     if not use_cache:
         log(f"epoch cache disabled (~{est >> 20} MiB of frames)")
+
+    def uploads():
+        for samples in ds.batches(args.batch, drop_remainder=True):
+            sharding = dp_sharding(mesh, len(samples))
+            yield sharding, upload(samples, sharding)
     cache = []
     for epoch in range(epochs):
-        source = cache if use_cache and epoch > 0 else (
-            upload(s) for s in ds.batches(args.batch, drop_remainder=True))
+        source = cache if use_cache and epoch > 0 else uploads()
         epoch_losses = []
-        for bi, item in enumerate(source):
+        for bi, (sharding, item) in enumerate(source):
             if use_cache and epoch == 0:
-                cache.append(item)
-            patch, loss = batch_steps(patch, item,
-                                      batch_generator(args.seed, epoch, bi))
+                cache.append((sharding, item))
+            with sharding:
+                patch, loss = batch_steps(
+                    patch, item, sharding,
+                    batch_generator(args.seed, epoch, bi))
             epoch_losses.append(float(loss))
         log(f"epoch {epoch + 1}/{epochs}: avg loss "
             f"{np.mean(epoch_losses):.4f}")
-        save_patch(os.path.join(save_dir, f"epoch{epoch + 1}", "patch.npy"),
-                   patch)
+        if mesh.rank == 0:
+            save_patch(os.path.join(save_dir, f"epoch{epoch + 1}",
+                                    "patch.npy"), patch)
     return patch
 
 
-def run_dsgn(args):
+def run_dsgn(args, mesh):
     from eval_driving_safety_tpu_torch.data.dataset import (
         prepare_dsgn_batch_u8, u8_to_01)
     from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
@@ -148,25 +167,27 @@ def run_dsgn(args):
     std = torch.tensor(cfg.input.std, dtype=torch.float32, device=device)
     ds = make_dataset(args)
 
-    dim, radius, patch = init_patch(cfg.height, ratio, save_dir)
+    with rank_zero_first(mesh):
+        dim, radius, patch = init_patch(cfg.height, ratio, save_dir)
     log(f"patch dim {dim} (radius {radius}); save_dir {save_dir}")
 
-    def upload(samples):
+    def upload(samples, sharding):
         b = prepare_dsgn_batch_u8(samples, cfg.input)
         put = lambda x: torch.as_tensor(x).to(device, non_blocking=True)
-        boxes, num = ghost_car_targets(len(samples), pcfg)
+        b, (boxes, num) = shard_batch(
+            (b, ghost_car_targets(len(samples), pcfg)), sharding)
         return {"il": put(b["im_left_u8"]), "ir": put(b["im_right_u8"]),
                 "calib": tuple(put(b[k]) for k in ("f_u", "baseline", "c_u",
                                                     "c_v")),
                 "boxes": put(boxes), "num": put(num)}
 
-    def batch_steps(patch, item, gen):
+    def batch_steps(patch, item, sharding, gen):
         il, ir = u8_to_01(item["il"]), u8_to_01(item["ir"])
         depth = torch.zeros(il.shape[:3], device=device)
-        cl, cr = sample_patch_centers(
-            gen, il.shape[0], il.shape[1], il.shape[2], radius,
+        cl, cr = shard_batch(sample_patch_centers(
+            gen, sharding.n, il.shape[1], il.shape[2], radius,
             row_band=pcfg.row_band, col_band=pcfg.col_band,
-            disparity_shift=pcfg.disparity_shift)
+            disparity_shift=pcfg.disparity_shift), sharding)
 
         def loss_fn(il01, ir01):
             out = model((il01 - mean) / std, (ir01 - mean) / std,
@@ -180,7 +201,7 @@ def run_dsgn(args):
                                             alpha=args.alpha, eps=eps)
         return patch, loss
 
-    train_patch(args, ds, patch.to(device), save_dir, epochs,
+    train_patch(args, mesh, ds, patch.to(device), save_dir, epochs,
                 2 * 3 * cfg.input.height * cfg.input.width, upload,
                 batch_steps)
 
@@ -222,7 +243,7 @@ def _srcnn_patch_targets(bsz, cfg, radius, cl, cr, device=None):
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
-def run_srcnn(args):
+def run_srcnn(args, mesh):
     from eval_driving_safety_tpu_torch.data.dataset import (
         prepare_srcnn_batch_u8, srcnn_clean01_device, srcnn_clip_bounds)
     from eval_driving_safety_tpu_torch.models.stereo_rcnn import \
@@ -246,33 +267,37 @@ def run_srcnn(args):
                         for v in srcnn_clip_bounds(cfg.input))
     h, w = cfg.input.height, cfg.input.width
     ds = make_dataset(args)
-    # every batch has --batch frames (the last, smaller one is dropped)
+    # every batch has --batch frames (the last, smaller one is dropped);
+    # each rank takes its rows of the global batch's draws
     draws = model.sample_draws(args.batch, torch.Generator(
         device=device).manual_seed(SRCNN_PATCH_DRAW_SEED))
 
-    dim, radius, patch = init_patch(h, ratio, save_dir)
+    with rank_zero_first(mesh):
+        dim, radius, patch = init_patch(h, ratio, save_dir)
     log(f"patch dim {dim} (radius {radius}); save_dir {save_dir}")
 
-    def upload(samples):
-        b = prepare_srcnn_batch_u8(samples, cfg.input)
+    def upload(samples, sharding):
+        # the global batch (its frames padded to its largest), then its rows
+        b = shard_batch(prepare_srcnn_batch_u8(samples, cfg.input), sharding)
         put = lambda x: torch.as_tensor(x).to(device, non_blocking=True)
         return {"il": put(b["im_left_u8"]), "ir": put(b["im_right_u8"]),
                 "weights": {k: put(b[k]) for k in ("ih", "iw", "den_h",
                                                    "den_w", "wmask", "c")}}
 
-    def batch_steps(patch, item, gen):
+    def batch_steps(patch, item, sharding, gen):
         il = srcnn_clean01_device(item["weights"], item["il"]) * 255.0 \
             - means
         ir = srcnn_clean01_device(item["weights"], item["ir"]) * 255.0 \
             - means
-        n = il.shape[0]
-        cl, cr = sample_patch_centers(
-            gen, n, h, w, radius, row_band=pcfg.row_band,
-            col_band=pcfg.col_band, disparity_shift=pcfg.disparity_shift)
-        gt = _srcnn_patch_targets(n, cfg, radius, cl, cr, device)
+        cl, cr = shard_batch(sample_patch_centers(
+            gen, sharding.n, h, w, radius, row_band=pcfg.row_band,
+            col_band=pcfg.col_band, disparity_shift=pcfg.disparity_shift),
+            sharding)
+        gt = _srcnn_patch_targets(il.shape[0], cfg, radius, cl, cr, device)
+        rows_draws = shard_batch(draws, sharding)
 
         def loss_fn(left, right):
-            out = model(left, right, gt=gt, draws=draws, mode="attack")
+            out = model(left, right, gt=gt, draws=rows_draws, mode="attack")
             return total_attack_loss(out.losses, uncert)
 
         for _ in range(args.iters):
@@ -281,13 +306,14 @@ def run_srcnn(args):
                 pixel_min=pix_min, pixel_max=pix_max)
         return patch, loss
 
-    train_patch(args, ds, patch.to(device), save_dir, epochs,
+    train_patch(args, mesh, ds, patch.to(device), save_dir, epochs,
                 SRCNN_FRAME_BYTES, upload, batch_steps)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    (run_dsgn if args.detector == "dsgn" else run_srcnn)(args)
+    with process_group(args) as mesh:
+        (run_dsgn if args.detector == "dsgn" else run_srcnn)(args, mesh)
 
 
 if __name__ == "__main__":

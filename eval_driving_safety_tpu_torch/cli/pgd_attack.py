@@ -15,6 +15,14 @@ per frame by den_h * den_w. Both replay natively on the doubled integer
 grid (attack.replay_native) where it is exact (attack.pgd.replay_255_valid,
 srcnn_replay_intable), else in f32, and write stored-mode PNGs natively.
 
+Under `torchrun --nproc_per_node N` every rank walks the same global
+batches and splits each over the ranks (parallel.sharding): a batch whose
+size divides by N is split into blocks of rows, every rank preparing the
+global batch (its padding, the samplers' draws) and taking its rows, the
+loss's normalizers summed over the ranks; each rank replays and writes
+its own frames. Any other batch (a short last one) is computed whole by
+every rank and written by rank 0. The files are those of one process.
+
 Usage:
   python -m eval_driving_safety_tpu_torch.cli.pgd_attack --detector dsgn \\
       --data_path KITTI/object/training --split_file val.txt \\
@@ -34,8 +42,10 @@ import torch
 from eval_driving_safety_tpu_torch.cli.common import (
     add_dataset_args, add_device_args, add_io_args, add_scale_args, log,
     make_dataset, make_dsgn_cfg, make_dsgn_model, make_srcnn_cfg,
-    make_srcnn_model, make_writer, use_deterministic_kernels,
+    make_srcnn_model, make_writer, process_group, use_deterministic_kernels,
     use_srcnn_precision)
+from eval_driving_safety_tpu_torch.parallel.sharding import (
+    barrier, dp_sharding, global_sum, shard_batch)
 
 # queued replay jobs: each pins a packed trajectory and a host batch
 _MAX_PENDING_REPLAYS = 3
@@ -88,7 +98,19 @@ def _already_done(prefix: str, n_iters: int, frame_ids) -> bool:
         for fid in frame_ids)
 
 
-def run_dsgn(args):
+def _done_batches(args, ds, prefix: str) -> set:
+    """The batches (tuples of frame ids) that --resume skips: those whose
+    last-iteration outputs all exist. Every rank decides on the same
+    global batches before any rank writes (the caller waits at a
+    barrier), so every rank skips the same ones."""
+    if not args.resume:
+        return set()
+    chunks = (tuple(ds.ids[s:s + args.batch])
+              for s in range(0, len(ds), args.batch))
+    return {ids for ids in chunks if _already_done(prefix, args.iter, ids)}
+
+
+def run_dsgn(args, mesh):
     from eval_driving_safety_tpu_torch.attack import objectives as O
     from eval_driving_safety_tpu_torch.attack.pgd import pgd_attack
     from eval_driving_safety_tpu_torch.data.dataset import (
@@ -145,9 +167,11 @@ def run_dsgn(args):
             pending.pop(0).result()
         pending.append(replayer.submit(job))
 
+    done = _done_batches(args, ds, prefix)
+    barrier()
+
     def prep(samples):
-        if args.resume and _already_done(prefix, args.iter,
-                                         [s.frame_id for s in samples]):
+        if tuple(s.frame_id for s in samples) in done:
             return None
         return (prepare_dsgn_batch_u8(samples, cfg.input,
                                       depth_dir=args.depth_dir),
@@ -162,24 +186,31 @@ def run_dsgn(args):
                                    prepare=prep):
             if prepared is None:                   # --resume skip
                 continue
+            # every rank prepares the global batch and takes its rows
             b, g = prepared
+            ids = b["frame_ids"]
+            sharding = dp_sharding(mesh, len(ids))
+            b, g = shard_batch((b, g), sharding)
             calib = tuple(put(b[k]) for k in ("f_u", "baseline", "c_u",
                                                "c_v"))
             depth = torch.zeros(b["depth_gt"].shape, device=device) \
                 if args.depth_dir is None else put(b["depth_gt"])
-            losses, traj = attack(put(b["im_left_u8"]), put(b["im_right_u8"]),
-                                  calib, depth, put(g["boxes3d"]),
-                                  put(g["num_boxes"], torch.int64))
-            if signs:
+            with sharding:
+                losses, traj = attack(
+                    put(b["im_left_u8"]), put(b["im_right_u8"]), calib,
+                    depth, put(g["boxes3d"]), put(g["num_boxes"],
+                                                  torch.int64))
+                losses = global_sum(losses)
+            if signs and sharding.writes:
                 submit_replay(b, traj[0], traj[1])
-            else:
+            elif sharding.writes:
                 save_attacked_images(b, b["im_left_u8"], b["im_right_u8"],
                                      f"{prefix}_iters_0", writer=writer)
                 for k in range(args.iter):
                     save_attacked_images(b, traj[0][k], traj[1][k],
                                          f"{prefix}_iters_{k + 1}",
                                          writer=writer)
-            log(f"{b['frame_ids']}: losses "
+            log(f"{ids}: losses "
                 f"{np.round(losses.cpu().numpy(), 3).tolist()}")
     finally:
         for f in pending:
@@ -195,7 +226,7 @@ def run_dsgn(args):
 SRCNN_DRAW_SEED = 11
 
 
-def run_srcnn(args):
+def run_srcnn(args, mesh):
     from eval_driving_safety_tpu_torch.attack.pgd import (
         pgd_attack, replay_pgd, signs1_to_packed2, srcnn_replay_intable)
     from eval_driving_safety_tpu_torch.attack import replay_native
@@ -265,10 +296,13 @@ def run_srcnn(args):
                           pl, pr, **vkw))
         save_sweep(b, (q0l, q0r), frames, prefix, writer)
 
+    done = _done_batches(args, ds, prefix)
+    barrier()
+
     def prep(samples):
-        if args.resume and _already_done(prefix, args.iter,
-                                         [s.frame_id for s in samples]):
+        if tuple(s.frame_id for s in samples) in done:
             return None
+        # the global batch: its frames are padded to its largest
         b = prepare_srcnn_batch_u8(samples, cfg.input)
         gt = make_gt_batch(b["objects"], b["calibs"], cfg,
                            image_scale=b["scales"])
@@ -288,17 +322,24 @@ def run_srcnn(args):
             if prepared is None:                   # --resume skip
                 continue
             b, gt, K, vkw = prepared
+            ids = b["frame_ids"]
+            sharding = dp_sharding(mesh, len(ids))
+            # decided, and drawn, for the global batch; then its rows
+            intable = srcnn_replay_intable(a_pix, e_pix, K)
+            draws = model.sample_draws(len(ids), torch.Generator(
+                device=device).manual_seed(SRCNN_DRAW_SEED))
+            b, gt, K, vkw, draws = shard_batch((b, gt, K, vkw, draws),
+                                               sharding)
             weights = {k: put(b[k]) for k in ("ih", "iw", "den_h", "den_w",
                                               "wmask")}
-            draws = model.sample_draws(len(b["frame_ids"]), torch.Generator(
-                device=device).manual_seed(SRCNN_DRAW_SEED))
-            losses, traj = attack(
-                put(b["im_left_u8"]), put(b["im_right_u8"]), weights,
-                {k: v.to(device) for k, v in gt.items()}, draws,
-                put(vkw["alpha"]), put(vkw["eps"]), put(vkw["clip_max"]),
-                put(b["c255"]))
-            if signs:
-                intable = srcnn_replay_intable(a_pix, e_pix, K)
+            with sharding:
+                losses, traj = attack(
+                    put(b["im_left_u8"]), put(b["im_right_u8"]), weights,
+                    {k: v.to(device) for k, v in gt.items()}, draws,
+                    put(vkw["alpha"]), put(vkw["eps"]),
+                    put(vkw["clip_max"]), put(b["c255"]))
+                losses = global_sum(losses)
+            if signs and sharding.writes:
                 if not logged:
                     logged = True
                     log("host replay path: " + (
@@ -309,11 +350,11 @@ def run_srcnn(args):
                     pending.pop(0).result()
                 pending.append(replayer.submit(replay_job, b, traj[0],
                                                traj[1], K, vkw, intable))
-            else:
+            elif sharding.writes:
                 _, _, q0l, q0r = srcnn_cleanv_q0_host(b)
                 save_sweep(b, (q0l, q0r), zip(traj[0], traj[1]), prefix,
                            writer)
-            log(f"{b['frame_ids']}: losses "
+            log(f"{ids}: losses "
                 f"{np.round(losses.cpu().numpy(), 3).tolist()}")
     finally:
         for f in pending:
@@ -325,8 +366,9 @@ def run_srcnn(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    with torch.autograd.set_detect_anomaly(args.debug_nans):
-        (run_dsgn if args.detector == "dsgn" else run_srcnn)(args)
+    with process_group(args) as mesh, \
+            torch.autograd.set_detect_anomaly(args.debug_nans):
+        (run_dsgn if args.detector == "dsgn" else run_srcnn)(args, mesh)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import torch
 
 from eval_driving_safety_tpu_torch.config import DSGNConfig
 from eval_driving_safety_tpu_torch.ops.boxes import smooth_l1
+from eval_driving_safety_tpu_torch.parallel.sharding import global_sum
 
 
 def bev_cell_centers(cfg: DSGNConfig, device=None):
@@ -94,7 +95,7 @@ def rpn3d_loss(cls_logits, reg_pred, ctr_logits, boxes3d, num_boxes,
                cfg: DSGNConfig) -> Dict[str, torch.Tensor]:
     """cls (B,Z,X,C), reg (B,Z,X,8), ctr (B,Z,X) vs padded gt (B,G,8)."""
     t = assign_bev_targets(boxes3d, num_boxes, cfg)
-    num_pos = torch.clamp_min(t.pos_mask.sum().float(), 1.0)
+    num_pos = torch.clamp_min(global_sum(t.pos_mask.sum().float()), 1.0)
     classes = torch.arange(cfg.num_classes, device=cls_logits.device)
     onehot = ((t.labels[..., None] - 1) == classes).float() \
         * t.pos_mask[..., None]
@@ -118,7 +119,7 @@ def disparity_loss(depth_preds, depth_gt, cfg: DSGNConfig) -> torch.Tensor:
     """Multi-scale smooth-L1 depth loss over gt depths in (min, max],
     weights cfg.disp_loss_weights aligned to the last predictions."""
     mask = depth_mask(depth_gt, cfg)
-    denom = torch.clamp_min(mask.sum().float(), 1.0)
+    denom = torch.clamp_min(global_sum(mask.sum().float()), 1.0)
     weights = cfg.disp_loss_weights[-len(depth_preds):]
     total = torch.zeros((), device=depth_gt.device)
     for w, pred in zip(weights, depth_preds):

@@ -36,6 +36,8 @@ from eval_driving_safety_tpu_torch.ops import boxes as B
 from eval_driving_safety_tpu_torch.ops.anchors import (fpn_feat_shapes,
                                                        pyramid_anchors)
 from eval_driving_safety_tpu_torch.ops.roi_align import pyramid_roi_align
+from eval_driving_safety_tpu_torch.parallel.sharding import (
+    global_mean, global_sum, is_first_share)
 
 LOSS_NAMES = ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_bbox",
               "rcnn_dim_orien", "rcnn_kpts")
@@ -64,14 +66,14 @@ def _ce(logits, labels):
 def _masked_mean_ce(logits, labels, mask):
     """Cross-entropy averaged over `mask`; 0 if the mask is empty."""
     ce = _ce(logits, labels) * mask
-    return ce.sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce.sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def _weighted_ce(logits, labels, weights):
     """Per-row cross-entropy times `weights`, summed, and divided by the
     weights' sum where that is at least 1 (the keypoint-loss rule)."""
     ce = (_ce(logits, labels) * weights).sum()
-    wsum = weights.sum()
+    wsum = global_sum(weights.sum())
     return torch.where(wsum < 1.0, ce, ce / torch.clamp(wsum, min=1.0))
 
 
@@ -79,7 +81,7 @@ def _smooth_l1_term(pred, target, inside_w, sigma=1.0):
     """smooth_l1(inside_w * (pred - target)) summed over the coordinates,
     averaged over the rows."""
     per = B.smooth_l1(inside_w * (pred - target), sigma=sigma)
-    return per.sum(dim=-1).mean()
+    return global_mean(per.sum(dim=-1))
 
 
 class StereoRPNHead(nn.Module):
@@ -260,8 +262,8 @@ class StereoRCNN(nn.Module):
                 (at.labels >= 0).reshape(-1).float())
             # sigma-3 smooth-L1 with inside and outside weights
             diff = at.inside_w * (rpn_box_pred - at.targets6)
-            losses["rpn_box"] = (B.smooth_l1(diff, sigma=3.0) * at.outside_w
-                                 ).sum(dim=(1, 2)).mean()
+            losses["rpn_box"] = global_mean(
+                (B.smooth_l1(diff, sigma=3.0) * at.outside_w).sum(dim=(1, 2)))
             rt = proposal_target_layer(
                 props, gt["gt_left"], gt["gt_right"], gt["gt_dim_orien"],
                 gt["gt_kpts"], gt["num_boxes"], draws.roi_fg, draws.roi_bg,
@@ -339,8 +341,11 @@ def total_attack_loss(losses: dict, uncert: torch.Tensor) -> torch.Tensor:
     """The six-term uncertainty-weighted loss that the attack ascends:
     sum_i loss_i * exp(-u_i) + u_i."""
     total = torch.zeros((), device=uncert.device)
+    first = is_first_share()
     for i, k in enumerate(LOSS_NAMES):
-        total = total + losses[k] * torch.exp(-uncert[i]) + uncert[i]
+        total = total + losses[k] * torch.exp(-uncert[i])
+        if first:                    # the constant once over the ranks
+            total = total + uncert[i]
     return total
 
 
