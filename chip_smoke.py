@@ -164,6 +164,16 @@ Phases (any failure ends the run with a non-zero exit):
      the differing pixels and where this process's first step differs
      between the batch of 2 and each row alone with the batch's
      normalizers (`split`).
+  14. the JAX DSGN trainer's orbax checkpoint at DSGNConfig.tiny(),
+     committed under tests/torch_fixtures/orbax_dsgn_tiny/ (no JAX on this
+     machine: utils.orbax_read reads it through the system's libzstd): (a)
+     every leaf equal to the SHA-256 digests the JAX package's restore
+     gave; (b) the attack CLI on it at --scale tiny, 1 iteration,
+     launching K1-K4 dx at the tiny config's shapes and no weight
+     gradient; (c) the training CLI resumed from a copy of it, starting at
+     epoch N+1 with the optax state's step count and writing
+     epoch{N+1}/checkpoint.pt; `orbax`: the library's path and version,
+     the read's host ms and MB/s on this machine's CPU.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -4757,6 +4767,159 @@ def split_phase(tmp, card, phase2, dtype, tiny=False):
     return rec
 
 
+# -------------------------------------------------------------- phase 14
+
+ORBAX_FIXTURE = os.path.join("tests", "torch_fixtures", "orbax_dsgn_tiny")
+
+
+def leaf_digests(tree, prefix=""):
+    """{path: {"shape", "dtype", "sha256"}} of every array leaf of a
+    checkpoint tree (dicts and lists of numpy arrays or torch tensors;
+    bfloat16 by its bits) and {path: {"value"}} of every scalar; None
+    leaves are left out. A path joins the keys and indices with "/"."""
+    import hashlib
+    import numpy as np
+    import torch
+    if tree is None:
+        return {}
+    if isinstance(tree, (bool, int, float, str)):
+        return {prefix: {"value": tree}}
+    if isinstance(tree, (dict, list)):
+        out = {}
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+            out.update(leaf_digests(v, f"{prefix}/{k}" if prefix
+                                    else str(k)))
+        return out
+    if isinstance(tree, torch.Tensor):
+        dtype = str(tree.dtype).removeprefix("torch.")
+        arr = (tree.view(torch.int16) if tree.dtype == torch.bfloat16
+               else tree).numpy()
+    else:
+        arr = np.asarray(tree)
+        dtype = str(arr.dtype)
+    return {prefix: {"shape": list(arr.shape), "dtype": dtype,
+                     "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}}
+
+
+def orbax_phase(tmp, dev, card):
+    """Phase 14: the JAX DSGN trainer's orbax checkpoint committed at
+    ORBAX_FIXTURE (DSGNConfig.tiny(), see its make script): (a) read by
+    utils.orbax_read through the system's libzstd, every leaf equal to the
+    digests the JAX package's restore gave, the read timed on the host;
+    (b) the attack CLI on it at --scale tiny, 1 iteration on the card,
+    launching K1-K4 dx at the tiny config's shapes and no weight gradient;
+    (c) the training CLI resumed from a copy of it: it starts at epoch N+1
+    with the optax state's step count and writes epoch{N+1}/checkpoint.pt,
+    launching all five kernels."""
+    import shutil
+    import numpy as np
+    from eval_driving_safety_tpu_torch.cli.train_detector import \
+        main as train_main
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.utils import zstd
+    from eval_driving_safety_tpu_torch.utils.checkpoint import (
+        is_orbax_checkpoint, latest_epoch_dir, restore_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.orbax_read import read_orbax
+    fixture = os.path.join(ROOT, ORBAX_FIXTURE)
+    epoch_dir = latest_epoch_dir(fixture)
+    check(epoch_dir is not None and is_orbax_checkpoint(epoch_dir),
+          f"no orbax epoch directory in {fixture}")
+    n = int(os.path.basename(epoch_dir).removeprefix("epoch"))
+    with open(os.path.join(fixture, "digests.json")) as f:
+        want = json.load(f)
+
+    # (a) the read, warm, median of 5
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tree = read_orbax(epoch_dir)
+        times.append(time.perf_counter() - t0)
+    read_s = sorted(times)[2]
+    got = leaf_digests(tree)
+    bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    check(not bad, f"orbax read: {len(bad)} leaves differ from the "
+          f"digests, e.g. {bad[:4]}")
+    with open("/proc/self/maps") as f:
+        lib_paths = sorted({ln.split()[-1] for ln in f if "libzstd" in ln})
+    disk = sum(os.path.getsize(os.path.join(d, name))
+               for d, _, names in os.walk(epoch_dir) for name in names)
+    arrays = sum(int(np.prod(v["shape"])) * np.dtype(
+        "int16" if v["dtype"] == "bfloat16" else v["dtype"]).itemsize
+        for v in got.values() if "shape" in v)
+    count = int(tree["opt_state"][1]["inner_state"][0]["count"])
+    check(tree["epoch"] == n, f"fixture epoch {tree['epoch']} != {n}")
+
+    # (b) the attack on it, 1 iteration at the tiny scale
+    ids = ["000001", "000002"]
+    data = os.path.join(tmp, "orbax_kitti")
+    write_frames(data, ids)
+    _cuda.reset_launches()
+    t_attack, losses, out = run_cli([
+        "--data_path", data, "--detector", "dsgn", "--scale", "tiny",
+        "--iter", "1", "--batch", "1", "--device", str(dev),
+        "--ckpt", epoch_dir,
+        "--out_prefix", os.path.join(tmp, "orbax_attack", "dsgn_pgd")])
+    launches = dict(_cuda.launches)
+    shapes = {(k, sh) for k, sh, _ in _cuda.launch_shapes}
+    tiny = DSGNConfig.tiny()
+    psv = {(1, tiny.num_depth_planes, tiny.height // 4, tiny.width // 4,
+            tiny.feature_channels)}
+    check(f"loaded DSGN weights from {epoch_dir} (the JAX trainer's orbax "
+          "checkpoint)" in out and len(losses) == len(ids) and all(
+              math.isfinite(v) for l in losses for v in l),
+          f"the attack on the orbax checkpoint: losses {losses}")
+    check(attack_launches_ok(launches)
+          and {sh for k, sh in shapes if k.startswith("psv")} == psv
+          and {sh for k, sh in shapes if k.startswith("depth_tap")}
+          == set(depthconv_shapes(tiny)),
+          f"the attack on the orbax checkpoint: launches {launches} at "
+          f"{sorted(shapes)}, expected K1-K4 dx at the tiny shapes")
+
+    # (c) the trainer resumed from a copy of it
+    ck = os.path.join(tmp, "orbax_ckpts")
+    copy = os.path.join(ck, os.path.basename(epoch_dir))
+    shutil.copytree(epoch_dir, copy)
+    _cuda.reset_launches()
+    t_resume, _, out = run_cli([
+        "--data_path", data, "--detector", "dsgn", "--tiny", "--epochs", "1",
+        "--ckpt_every", "1", "--ckpt_dir", ck, "--resume",
+        "--device", str(dev)], train_main)
+    train_launches = dict(_cuda.launches)
+    resumed = train_losses(out)
+    saved = os.path.join(ck, f"epoch{n + 1}")
+    check(f"resumed from {copy} (epoch {n})" in out
+          and sorted(resumed) == [n + 1] and math.isfinite(resumed[n + 1])
+          and os.path.isfile(os.path.join(saved, "checkpoint.pt")),
+          f"the resume from the orbax checkpoint: losses {resumed}")
+    c = restore_checkpoint(saved)
+    steps = len(ids)
+    check(c["epoch"] == n + 1 and c["opt_state"]["count"] == count + steps
+          and all(int(st["step"]) == count + steps
+                  for st in c["opt_state"]["adamw"]["state"].values()),
+          f"epoch{n + 1}: epoch {c['epoch']}, count "
+          f"{c['opt_state']['count']}, expected {count} + {steps}")
+    check(all(v > 0 for v in train_launches.values()),
+          f"the resumed training launches {train_launches}")
+    rec = {
+        "fixture": ORBAX_FIXTURE, "epoch_dir": os.path.basename(epoch_dir),
+        "leaves": len(got), "zstd_library": lib_paths,
+        "zstd_version": zstd.version(), "disk_bytes": disk,
+        "array_bytes": arrays, "read_ms": read_s * 1e3,
+        "read_ms_all": [t * 1e3 for t in times],
+        "disk_MB_per_s": disk / read_s / 1e6,
+        "array_MB_per_s": arrays / read_s / 1e6,
+        "attack_s": t_attack, "attack_losses": losses,
+        "attack_launches": launches, "resume_s": t_resume,
+        "resumed_losses": resumed, "count": count,
+        "resumed_count": c["opt_state"]["count"],
+        "train_launches": train_launches, "host": "the card machine's CPU",
+        "card": card}
+    log(json.dumps({"orbax": rec}))
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4864,6 +5027,9 @@ def main():
         # 13. the batch split over two gloo ranks on this card
         split = split_phase(tmp, card, phase2, full.dtype)
         lap("13_split")
+        # 14. the JAX trainer's orbax checkpoint: read, attacked, resumed
+        orbax_phase(tmp, dev, card)
+        lap("14_orbax")
     torch.cuda.empty_cache()
     dsgn_steady = steady_state(full, dev, card)
     lap("4_attack_steady_state")

@@ -89,6 +89,41 @@ def make_dsgn_cfg(args):
     return DSGNConfig.full(remat=args.remat)
 
 
+def read_epoch_dir(ckpt: str, takes: str):
+    """(tree, from_orbax) of the epoch directory `ckpt`: a checkpoint of
+    the port's trainer, or the JAX trainer's orbax checkpoint (Flax
+    layout). Where it is neither, exits with the reader's reason and what
+    `--ckpt` takes."""
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        read_trainer_checkpoint
+    try:
+        return read_trainer_checkpoint(ckpt)
+    except ValueError as e:
+        raise SystemExit(f"{e}; --ckpt takes {takes}") from None
+
+
+def bridged(bridge, params, *args):
+    """`params` of an orbax tree through a utils.from_flax bridge, or None
+    where the tree has none or the bridge cannot map it (a tree of
+    another model: the caller's shape check refuses it)."""
+    if not isinstance(params, dict):
+        return None
+    try:
+        return bridge(params, *args)
+    except (ValueError, AttributeError):
+        return None
+
+
+def load_checked(model, sd, refusal: str) -> None:
+    """Load the state dict `sd` into `model` if it has the model's keys at
+    the model's shapes; else exit with `refusal`."""
+    want = model.state_dict()
+    if not isinstance(sd, dict) or set(sd) != set(want) or any(
+            sd[k].shape != v.shape for k, v in want.items()):
+        raise SystemExit(refusal)
+    model.load_state_dict(sd)
+
+
 def make_dsgn_model(args, cfg, device):
     """The DSGN the attack or predict CLIs run, frozen: weights from
     `--ckpt`, or a fresh seeded init of the port's DSGN. A `--ckpt` ending
@@ -97,12 +132,14 @@ def make_dsgn_model(args, cfg, device):
     architecture taken from the state dict; any other `--ckpt` is a
     `torch.save`d state dict of the port's DSGN (e.g. made by
     utils.from_flax) or an epoch directory of its trainer
-    (cli.train_detector), whose `params` it takes."""
+    (cli.train_detector) or of the JAX package's trainer (orbax, read by
+    utils.orbax_read and bridged by utils.from_flax), whose `params` it
+    takes."""
     import torch
 
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
-    from eval_driving_safety_tpu_torch.utils.checkpoint import (
-        is_checkpoint, restore_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.from_flax import \
+        dsgn_state_dict_from_flax
     if args.ckpt and args.ckpt.endswith((".tar", ".pth")):
         from eval_driving_safety_tpu_torch.utils.torch_import import \
             load_dsgn_checkpoint
@@ -115,21 +152,23 @@ def make_dsgn_model(args, cfg, device):
         return model.to(device).requires_grad_(False).eval()
     model = DSGN(cfg)
     if args.ckpt:
+        takes = ("a published DSGN .tar or .pth, a torch.save'd state dict "
+                 "of this package's DSGN, or an epoch directory of this "
+                 "package's trainer (checkpoint.pt) or of the JAX "
+                 "package's trainer (orbax)")
+        from_orbax = False
         if os.path.isdir(args.ckpt):
-            sd = restore_checkpoint(args.ckpt)["params"] \
-                if is_checkpoint(args.ckpt) else None
+            tree, from_orbax = read_epoch_dir(args.ckpt, takes)
+            sd = tree.get("params") if isinstance(tree, dict) else None
+            if from_orbax:
+                sd = bridged(dsgn_state_dict_from_flax, sd)
         else:
             sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
-        want = model.state_dict()
-        if not isinstance(sd, dict) or set(sd) != set(want) or any(
-                sd[k].shape != v.shape for k, v in want.items()):
-            raise SystemExit(
-                f"{args.ckpt} is neither a state dict of this package's "
-                "DSGN at this scale nor a checkpoint of its trainer at this "
-                "scale; the JAX trainer's orbax checkpoints (ROADMAP item "
-                "13) are not read")
-        model.load_state_dict(sd)
-        log(f"loaded DSGN weights from {args.ckpt}")
+        load_checked(model, sd, f"{args.ckpt} holds no DSGN weights at "
+                     f"this scale; --ckpt takes {takes}")
+        log(f"loaded DSGN weights from {args.ckpt}"
+            + (" (the JAX trainer's orbax checkpoint)" if from_orbax
+               else ""))
     else:
         model.init_weights(seed=0)
         log("WARNING: no --ckpt given; using randomly initialized weights")
@@ -159,18 +198,19 @@ def make_srcnn_model(args, cfg, device):
     """The Stereo R-CNN the attack runs, frozen, and its loss weights
     `uncert` (6,): `--ckpt` is the published checkpoint (`.pth` or
     `.tar`, upstream layout: its weights, its keypoint conv count and its
-    `uncert`), a checkpoint directory of the port (utils.checkpoint;
-    `params`, and `uncert` where it has one) or a `torch.save`d state
-    dict of the port's StereoRCNN (utils.from_flax makes one from Flax
-    weights); without it a seeded fresh init, and `uncert` is 0. In bf16
-    the kernels are cast once (`cast_matmul_params`)."""
+    `uncert`), an epoch directory of the port's trainer or of the JAX
+    package's (orbax; `params`, and `uncert` where it has one) or a
+    `torch.save`d state dict of the port's StereoRCNN (utils.from_flax
+    makes one from Flax weights); without it a seeded fresh init, and
+    `uncert` is 0. In bf16 the kernels are cast once
+    (`cast_matmul_params`)."""
     import torch
 
     from eval_driving_safety_tpu_torch.models.common import \
         cast_matmul_params
     from eval_driving_safety_tpu_torch.models.stereo_rcnn import StereoRCNN
-    from eval_driving_safety_tpu_torch.utils.checkpoint import (
-        is_checkpoint, restore_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.from_flax import \
+        stereo_rcnn_state_dict_from_flax
     uncert = torch.zeros(6)
     ckpt = args.ckpt
     if ckpt and ckpt.endswith((".tar", ".pth")):
@@ -186,25 +226,26 @@ def make_srcnn_model(args, cfg, device):
             f"(kpts convs={imported['num_kpts_convs']}, "
             f"unmapped={len(imported['unmapped'])})")
     elif ckpt:
+        takes = ("a published Stereo R-CNN .pth or .tar, a torch.save'd "
+                 "state dict of this package's StereoRCNN, or an epoch "
+                 "directory of this package's trainer (checkpoint.pt) or "
+                 "of the JAX package's trainer (orbax)")
         model = StereoRCNN(cfg)
-        sd = None
+        from_orbax = False
         if os.path.isdir(ckpt):
-            if is_checkpoint(ckpt):
-                tree = restore_checkpoint(ckpt)
-                sd = tree.get("params")
-                if tree.get("uncert") is not None:
-                    uncert = torch.as_tensor(tree["uncert"],
-                                             dtype=torch.float32)
+            tree, from_orbax = read_epoch_dir(ckpt, takes)
+            tree = tree if isinstance(tree, dict) else {}
+            sd = tree.get("params")
+            if from_orbax:
+                sd = bridged(stereo_rcnn_state_dict_from_flax, sd, model)
+            if tree.get("uncert") is not None:
+                uncert = torch.as_tensor(tree["uncert"], dtype=torch.float32)
         else:
             sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-        want = model.state_dict()
-        if not isinstance(sd, dict) or set(sd) != set(want) or any(
-                sd[k].shape != v.shape for k, v in want.items()):
-            raise SystemExit(
-                f"{ckpt} is not a state dict of this package's StereoRCNN "
-                "at this config, nor a checkpoint directory holding one")
-        model.load_state_dict(sd)
+        load_checked(model, sd, f"{ckpt} holds no Stereo R-CNN weights at "
+                     f"this config; --ckpt takes {takes}")
         log(f"loaded Stereo R-CNN weights from {ckpt}"
+            + (" (the JAX trainer's orbax checkpoint)" if from_orbax else "")
             + (f", uncert {uncert.tolist()}" if uncert.any() else ""))
     else:
         model = StereoRCNN(cfg).init_weights(seed=0)
@@ -217,22 +258,22 @@ def make_srcnn_model(args, cfg, device):
 
 def load_classifier(task: str, cfg, ckpt: str, device):
     """The scene classifier of `task` at `cfg`, frozen and in eval mode,
-    with the `params` of `ckpt`, an epoch directory of
-    cli.train_classifier."""
+    with the `params` of `ckpt`, an epoch directory of cli.train_classifier
+    or of the JAX package's train_classifier (orbax)."""
     from eval_driving_safety_tpu_torch.models.classifiers import \
         make_classifier
-    from eval_driving_safety_tpu_torch.utils.checkpoint import (
-        is_checkpoint, restore_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.from_flax import (
+        dynamic_vehicle_state_dict_from_flax, road_type_state_dict_from_flax)
+    takes = ("an epoch directory of this package's train_classifier "
+             "(checkpoint.pt) or of the JAX package's (orbax)")
     model = make_classifier(task, cfg)
-    sd = restore_checkpoint(ckpt).get("params") if is_checkpoint(ckpt) \
-        else None
-    want = model.state_dict()
-    if not isinstance(sd, dict) or set(sd) != set(want) or any(
-            sd[k].shape != v.shape for k, v in want.items()):
-        raise SystemExit(
-            f"{ckpt} is not a checkpoint directory of this package's {task} "
-            f"classifier at image size {cfg.image_size}")
-    model.load_state_dict(sd)
+    tree, from_orbax = read_epoch_dir(ckpt, takes)
+    sd = tree.get("params") if isinstance(tree, dict) else None
+    if from_orbax:
+        sd = bridged(road_type_state_dict_from_flax if task == "road_type"
+                     else dynamic_vehicle_state_dict_from_flax, sd)
+    load_checked(model, sd, f"{ckpt} holds no {task} classifier at image "
+                 f"size {cfg.image_size}; --ckpt takes {takes}")
     return model.to(device).requires_grad_(False).eval()
 
 

@@ -3,9 +3,11 @@
 Counterpart of `eval_driving_safety_tpu.cli.train_detector`, with the
 same flags, optimizer, schedule and checkpoint layout:
 `{ckpt_dir}/epoch{N}/` every `--ckpt_every` epochs and after the last,
-written by utils.checkpoint with `torch.save` (the JAX trainer's orbax
-directories are not read). A last batch of fewer than `--batch` frames
-is dropped.
+written by utils.checkpoint with `torch.save`. `--resume` continues from
+the newest `epoch{N}/`, the port's or the JAX trainer's orbax directory:
+its Flax parameters go through utils.from_flax and its optax state
+becomes the optimizer's exactly (`detector_state_from_optax`). A last
+batch of fewer than `--batch` frames is dropped.
 * dsgn: `DSGNConfig()` (`--tiny`: `DSGNConfig.tiny()`), initialised from
   `--seed`; the objective is `dsgn_total_loss`, whose disparity term
   trains only with `--depth_dir` (depth maps from cli.make_depth_gt).
@@ -136,6 +138,98 @@ def make_detector_optimizer(named_params, sched) -> DetectorOptimizer:
     return DetectorOptimizer(adamw, clipped, sched)
 
 
+def _pruned(tree):
+    """A moment tree without the None leaves where an optax mask left a
+    leaf out, nor the dicts that leaves empty."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _pruned(v) for k, v in tree.items() if v is not None}
+    return {k: v for k, v in out.items()
+            if not (isinstance(v, dict) and not v)}
+
+
+def detector_state_from_optax(opt: DetectorOptimizer, named_params,
+                              opt_state, moments) -> dict:
+    """The `opt.state_dict()` that continues the JAX trainer's optax state
+    `opt_state` (as utils.orbax_read reads it) step for step. The chain
+    (JAX cli/train_detector.py make_detector_optimizer) is
+    clip_by_global_norm (no state), adamw masked to the network weights,
+    adam masked to `uncert`, set_to_zero masked to the frozen statistics:
+    [None, {inner_state: [{count, mu, nu}, None, {count}]},
+    {inner_state: [{count, mu, nu}, {count}]}, {inner_state: None}], mu
+    and nu None where a mask leaves a leaf out. `moments(tree)` maps a
+    moment tree to the port's parameter names and layouts, as the
+    parameters are mapped; each AdamW parameter takes its moments and its
+    transform's count as its step, and the schedule its count. Raises
+    ValueError where the state is not that chain's for these
+    parameters."""
+    try:
+        adamw = opt_state[1]["inner_state"][0]
+        adam = opt_state[2]["inner_state"][0]
+        src = {True: (adam, moments(_pruned(adam["mu"])),
+                      moments(_pruned(adam["nu"]))),
+               False: (adamw, moments(_pruned(adamw["mu"])),
+                       moments(_pruned(adamw["nu"])))}
+    except (TypeError, KeyError, IndexError) as e:
+        raise ValueError("not the optax state of the JAX detector "
+                         f"trainer's chain ({e!r})") from None
+    names = {id(p): n for n, p in named_params}
+    sd = opt.state_dict()
+    state, i, used = {}, 0, set()
+    for group in opt.adamw.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            counts, mu, nu = src[name == "uncert"]
+            if name not in mu or name not in nu or \
+                    tuple(mu[name].shape) != tuple(p.shape) or \
+                    tuple(nu[name].shape) != tuple(p.shape):
+                raise ValueError(f"the optax state has no moments of "
+                                 f"{name} {tuple(p.shape)}")
+            state[i] = {"step": torch.tensor(float(counts["count"])),
+                        "exp_avg": torch.as_tensor(mu[name]),
+                        "exp_avg_sq": torch.as_tensor(nu[name])}
+            used.add(name)
+            i += 1
+    extra = (set(src[False][1]) | set(src[True][1])) - used
+    if extra:
+        raise ValueError(f"the optax state has moments of {sorted(extra)[:4]}"
+                         ", which the optimizer does not update")
+    sd["adamw"]["state"] = state
+    sd["count"] = int(adamw["count"])
+    return sd
+
+
+def resume(path: str, model, opt: DetectorOptimizer, from_flax,
+           uncert=None) -> int:
+    """Load the epoch directory `path` into `model`, `opt` and `uncert`
+    (Stereo R-CNN's loss weights) and return its epoch: the port's
+    checkpoint, or the JAX trainer's orbax one, whose parameters (and
+    moments) `from_flax` maps to the port's state dict."""
+    from eval_driving_safety_tpu_torch.utils.checkpoint import \
+        read_trainer_checkpoint
+    ck, from_orbax = read_trainer_checkpoint(path)
+    if from_orbax:
+        def moments(tree):
+            out = from_flax(tree.get("params", {}))
+            if "uncert" in tree:
+                out["uncert"] = torch.as_tensor(tree["uncert"])
+            return out
+        params = from_flax(ck["params"])
+        named = list(model.named_parameters())
+        if uncert is not None:
+            named.append(("uncert", uncert))
+        state = detector_state_from_optax(opt, named, ck["opt_state"],
+                                          moments)
+    else:
+        params, state = ck["params"], ck["opt_state"]
+    model.load_state_dict(params)
+    if uncert is not None:
+        with torch.no_grad():
+            uncert.copy_(torch.as_tensor(ck["uncert"]))
+    opt.load_state_dict(state)
+    return int(ck["epoch"])
+
+
 def make_train_step(model, opt: DetectorOptimizer, cfg, device):
     """One training step on a batch: u8 frames in, the loss out (a
     tensor on the device; reading it waits for the step)."""
@@ -162,7 +256,9 @@ def run_dsgn(args):
         dsgn_boxes3d, prepare_dsgn_batch_u8)
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
     from eval_driving_safety_tpu_torch.utils.checkpoint import (
-        latest_epoch_dir, restore_checkpoint, save_checkpoint)
+        latest_epoch_dir, save_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.from_flax import \
+        dsgn_state_dict_from_flax
     device = torch.device(args.device)
     use_deterministic_kernels(device)
     cfg = DSGNConfig.tiny() if args.tiny else DSGNConfig()
@@ -178,10 +274,8 @@ def run_dsgn(args):
     if args.resume:
         newest = latest_epoch_dir(ckpt_dir)
         if newest:
-            ck = restore_checkpoint(newest)
-            model.load_state_dict(ck["params"])
-            opt.load_state_dict(ck["opt_state"])
-            start_epoch = int(ck["epoch"])
+            start_epoch = resume(newest, model, opt,
+                                 dsgn_state_dict_from_flax)
             log(f"resumed from {newest} (epoch {start_epoch})")
     train_step = make_train_step(model, opt, cfg, device)
 
@@ -247,7 +341,9 @@ def run_srcnn(args):
     from eval_driving_safety_tpu_torch.models.stereo_rcnn import (
         StereoRCNN, make_gt_batch)
     from eval_driving_safety_tpu_torch.utils.checkpoint import (
-        latest_epoch_dir, restore_checkpoint, save_checkpoint)
+        latest_epoch_dir, save_checkpoint)
+    from eval_driving_safety_tpu_torch.utils.from_flax import \
+        stereo_rcnn_state_dict_from_flax
     device = torch.device(args.device)
     use_deterministic_kernels(device)
     cfg = StereoRCNNConfig.tiny() if args.tiny else StereoRCNNConfig()
@@ -266,12 +362,10 @@ def run_srcnn(args):
     if args.resume:
         newest = latest_epoch_dir(ckpt_dir)
         if newest:
-            ck = restore_checkpoint(newest)
-            model.load_state_dict(ck["params"])
-            with torch.no_grad():
-                uncert.copy_(ck["uncert"])
-            opt.load_state_dict(ck["opt_state"])
-            start_epoch = int(ck["epoch"])
+            start_epoch = resume(
+                newest, model, opt,
+                lambda t: stereo_rcnn_state_dict_from_flax(t, model),
+                uncert)
             log(f"resumed from {newest} (epoch {start_epoch})")
     train_step = make_srcnn_train_step(model, uncert, opt, cfg, device)
     # fresh draws at every step, as the JAX trainer splits its key

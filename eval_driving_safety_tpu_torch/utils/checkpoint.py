@@ -2,9 +2,13 @@
 `torch.save`.
 
 Counterpart of eval_driving_safety_tpu/utils/checkpoint.py, which writes
-orbax directories; those are not read here. A checkpoint is the directory
-`path` holding `checkpoint.pt`, a dict such as {params, opt_state, epoch}
-of tensors and plain Python values, loaded back with `weights_only=True`.
+orbax directories. A checkpoint of the port is the directory `path`
+holding `checkpoint.pt`, a dict such as {params, opt_state, epoch} of
+tensors and plain Python values, loaded back with `weights_only=True`.
+The port also reads the JAX trainers' orbax directories
+(`read_trainer_checkpoint`, through utils.orbax_read, without JAX): their
+trees keep the Flax layout, which utils.from_flax bridges. It writes only
+its own format.
 """
 from __future__ import annotations
 
@@ -32,6 +36,24 @@ def restore_checkpoint(path: str) -> Any:
 
 def is_checkpoint(path: str) -> bool:
     return os.path.isfile(os.path.join(path, FILE))
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    """Whether `path` looks like an orbax directory of the JAX package:
+    its `_METADATA` and the OCDBT store's root `manifest.ocdbt`."""
+    return all(os.path.isfile(os.path.join(path, n))
+               for n in ("_METADATA", "manifest.ocdbt"))
+
+
+def read_trainer_checkpoint(path: str) -> tuple[Any, bool]:
+    """(tree, from_orbax) of an epoch directory: the port's
+    `checkpoint.pt`, or else the JAX trainers' orbax checkpoint, whose
+    tree is in the Flax layout. Raises ValueError, saying what the
+    directory lacks, where it is neither."""
+    if is_checkpoint(path):
+        return restore_checkpoint(path), False
+    from eval_driving_safety_tpu_torch.utils.orbax_read import read_orbax
+    return read_orbax(path), True
 
 
 def latest_epoch_dir(base_dir: str, prefix: str = "epoch") -> Optional[str]:

@@ -27,6 +27,14 @@ _KERNEL_PERM = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (0, 1, 2),
                 2: (1, 0)}
 
 
+def _f32(leaf) -> np.ndarray:
+    """A leaf as float32 numpy: a Flax or numpy array, or a
+    torch.bfloat16 tensor as utils.orbax_read returns one."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.float().numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def _flatten(tree: Mapping, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -42,7 +50,7 @@ def dsgn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     tree = params["params"] if "params" in params else params
     sd = {}
     for path, leaf in _flatten(tree):
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = _f32(leaf)
         *mods, name = path
         if name == "kernel":
             if arr.ndim not in _KERNEL_PERM:
@@ -66,7 +74,7 @@ def stereo_rcnn_state_dict_from_flax(variables: Mapping,
     tree = variables["params"] if "params" in variables else variables
     sd = {}
     for path, leaf in _flatten(tree):
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = _f32(leaf)
         *mods, name = path
         if name == "kernel":
             mod = model.get_submodule(".".join(mods))

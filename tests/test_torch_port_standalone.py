@@ -1,6 +1,7 @@
 """The port stands alone: no module of eval_driving_safety_tpu_torch, and
-not chip_smoke.py, imports jax, flax or the JAX package (an AST scan of
-every import statement, including those inside functions)."""
+not chip_smoke.py, imports jax, flax, optax, orbax, the JAX package, or
+tensorstore or zstandard, which only the CPU test machine has (an AST
+scan of every import statement, including those inside functions)."""
 import ast
 import importlib
 import pathlib
@@ -10,7 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "eval_driving_safety_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "eval_driving_safety_tpu")
+             "eval_driving_safety_tpu", "tensorstore", "zstandard")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -360,9 +360,10 @@ def test_train_cli_checkpoints_resumes_and_feeds_the_attack(tmp_path,
 
 
 def test_attack_refuses_checkpoints_it_cannot_read(tmp_path):
-    """An orbax-style directory (no checkpoint.pt) and a trainer
-    checkpoint of another scale are refused, naming the ROADMAP item of
-    the JAX trainer's checkpoints."""
+    """An orbax-style directory that is not a checkpoint (a `_METADATA`
+    but no OCDBT manifest, no checkpoint.pt) is refused with the orbax
+    reader's reason, and a trainer checkpoint of another scale with the
+    formats `--ckpt` takes."""
     from eval_driving_safety_tpu_torch.cli import pgd_attack
     orbax = tmp_path / "orbax" / "epoch3"
     orbax.mkdir(parents=True)
@@ -370,8 +371,12 @@ def test_attack_refuses_checkpoints_it_cannot_read(tmp_path):
     tiny = DSGN(DSGNConfig.tiny()).init_weights(0)
     C.save_checkpoint(str(tmp_path / "tiny"), {
         "params": tiny.state_dict(), "opt_state": {}, "epoch": 1})
-    for ckpt, scale in ((orbax, "tiny"), (tmp_path / "tiny", "default")):
-        with pytest.raises(SystemExit, match="ROADMAP item 13"):
+    for ckpt, scale, match in (
+            (orbax, "tiny", "is not an orbax checkpoint: it lacks "
+             "_METADATA or manifest.ocdbt"),
+            (tmp_path / "tiny", "default", "holds no DSGN weights at this "
+             "scale; --ckpt takes .*the JAX package's trainer \\(orbax\\)")):
+        with pytest.raises(SystemExit, match=match):
             pgd_attack.main(["--data_path", str(tmp_path), "--scale", scale,
                              "--device", "cpu", "--ckpt", str(ckpt)])
 
