@@ -22,7 +22,8 @@ Phases (any failure ends the run with a non-zero exit):
      (forward and backward PSV warp) at the edges of their design: other
      channel counts and access widths, ragged and long rows, per-image
      and out-of-range disparities, the unfused warp, misaligned views and
-     a non-contiguous gradient;
+     a non-contiguous gradient; and hold and time K1-K4 at the model
+     axis's per-rank shapes of phase 15 (bf16);
   3. run the tiny model in fp32 on the card and on the CPU with the same
      weights and inputs and compare the loss and the input gradients;
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
@@ -174,6 +175,23 @@ Phases (any failure ends the run with a non-zero exit):
      epoch N+1 with the optax state's step count and writing
      epoch{N+1}/checkpoint.pt; `orbax`: the library's path and version,
      the read's host ms and MB/s on this machine's CPU.
+  15. the model axis (parallel/volume.py): DSGN's plane-sweep volume
+     split by depth plane over two gloo ranks sharing the card, mesh
+     (1, 2), on phase 4's first frame: (a) one PGD step and one patch
+     step of the fast DSGN at DSGNConfig.full() bf16, as one process and
+     as the two ranks: the loss (and the patch step's) within 2^-7
+     relative, every depth map within 2^-7 x the largest, at most a
+     quarter of the image-gradient signs flipped, the two ranks' results
+     the same bits; each rank launches K1, K2, K3 and K4 dx at its
+     per-rank shapes (48 planes for K1/K2; 50, 26 and 14 planes for K3/K4
+     dx, the voxel layers whole) and no weight gradient, and those new
+     shapes are held against the plain versions here; (b) the compat
+     model at the upstream default arch the same way (its depth map by
+     the mean error, 2^-10, and at most 5% of the pixels past 2^-7),
+     launching K1 and K2 once a step and nothing else of the port; (c)
+     parallel.dryrun at world 4 on the (2, 2) mesh at --scale dryrun;
+     `model_axis`: each run's step time, the collectives' bytes and host
+     ms a step, peak memory per rank, the ranks' kernels a step.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -388,7 +406,10 @@ def check_psv(c, dtype_name, dev, per):
         bytes=bwd_bytes, ops=fwd_ops + n_out // 2)
 
 
-def check_depthconv(cfg, dtype_name, dev, per, wgrad):
+def check_depthconv(cfg, dtype_name, dev, per, wgrad, shapes=None):
+    """Hold K3, K4 dx and the weight gradient against their plain versions
+    at `shapes` (B, D, N, C, F) (those of `cfg`'s forward by default),
+    and time them beside the library call."""
     import torch
     import torch.nn.functional as F
     from eval_driving_safety_tpu_torch.ops.depthconv import (
@@ -397,7 +418,7 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad):
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(1)
     isz = torch.finfo(dt).bits // 8
-    for b, d, n, c, f in depthconv_shapes(cfg):
+    for b, d, n, c, f in shapes or depthconv_shapes(cfg):
         x = (torch.randn(b, d, n, 1, c, device=dev, generator=g) * 0.5).to(dt)
         w = (torch.randn(3, c, f, device=dev, generator=g) / c ** 0.5).to(dt)
         inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
@@ -4920,6 +4941,371 @@ def orbax_phase(tmp, dev, card):
     return rec
 
 
+# -------------------------------------------------------------- phase 15
+
+# the model axis's step on phase 4's first frame: 2 warm-up and 5 timed
+# PGD steps a model after the counted one
+MODEL_AXIS_TIMED = 5
+
+
+def rank_depthconv_shapes(c, n):
+    """The depth-conv launch shapes (B, D, N, C, F) of one forward of
+    config `c` on each of `n` model ranks: the rank's planes and a halo
+    of one on each side at the full, half and quarter volumes, and the
+    voxel layers (on Z, computed alike on every rank) as one process has
+    them."""
+    whole = depthconv_shapes(c)
+    return [(b, d // n + 2, hw, ci, f) for b, d, hw, ci, f in whole[:3]] \
+        + whole[3:]
+
+
+def rank_psv_shape(c, n):
+    """K1's and K2's (B, D, H, W, C) on each of `n` model ranks."""
+    return (1, c.num_depth_planes // n, c.height // 4, c.width // 4,
+            c.feature_channels)
+
+
+def model_axis_run(out, data, depth_dir, tiny=False):
+    """`python3 chip_smoke.py --model-axis OUT DATA DEPTH_DIR [tiny]`: one
+    process, or one rank of a launch (mesh (1, world): the world splits
+    the planes), runs on the first frame of DATA (depth ground truth from
+    DEPTH_DIR) one PGD step, then one patch step, of the fast DSGN at
+    DSGNConfig.full() (seed 0) and of the compat model at the upstream
+    default arch (random_compat_weights), bf16, on the card (the CPU and
+    the tiny config and arch with `tiny`), each with the launch counts
+    set to 0 just before it and read just after; then times the PGD step
+    (median of MODEL_AXIS_TIMED after 2 warm-ups) and reads the peak
+    memory. Writes OUT.npz (the losses, every depth map, both images'
+    gradient signs, the new patch) and OUT.json (launches, shapes, the
+    collectives' traffic in one PGD step, times, memory), "{rank}" in OUT
+    replaced by the rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from eval_driving_safety_tpu_torch.attack import objectives as O
+    from eval_driving_safety_tpu_torch.attack.patch import (
+        init_patch, patch_update_step, sample_patch_centers)
+    from eval_driving_safety_tpu_torch.cli.common import \
+        use_deterministic_kernels
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    from eval_driving_safety_tpu_torch.data.dataset import (
+        KittiStereoDataset, dsgn_boxes3d, prepare_dsgn_batch_u8)
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import (
+        DSGNCompat, DSGNCompatArch)
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    from eval_driving_safety_tpu_torch.parallel import sharding as S
+    from eval_driving_safety_tpu_torch.parallel import volume as V
+    mesh = S.init_process_group("cpu" if tiny else "cuda")
+    mesh = dataclasses.replace(S.make_mesh(1, mesh.world),
+                               device=mesh.device)
+    out = out.replace("{rank}", str(mesh.rank))
+    dev = mesh.device
+    use_deterministic_kernels(dev)
+    shard = V.constrain_psv(mesh)
+    cfg = DSGNConfig.tiny() if tiny else DSGNConfig.full()
+    sample = KittiStereoDataset(data).get(0)
+    b = prepare_dsgn_batch_u8([sample], cfg.input, depth_dir=depth_dir)
+    g = dsgn_boxes3d([sample])
+
+    def put(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype).to(dev)
+    mean, std = (put(np.asarray(v, np.float32) * 255.0)
+                 for v in (cfg.input.mean, cfg.input.std))
+    calib = [put(b[k]) for k in ("f_u", "baseline", "c_u", "c_v")]
+    depth, boxes = put(b["depth_gt"]), put(g["boxes3d"])
+    num = put(g["num_boxes"], torch.int64)
+    clean = [put(b[k]).float() for k in ("im_left_u8", "im_right_u8")]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    arrays, rec = {}, {"world": mesh.world, "rank": mesh.rank}
+    for kind in ("dsgn", "compat"):
+        if kind == "dsgn":
+            model = DSGN(cfg, volume_constraint=shard).init_weights(0)
+        else:
+            arch = DSGNCompatArch.tiny() if tiny else DSGNCompatArch()
+            model = DSGNCompat(cfg, arch, volume_constraint=shard)
+            model.load_state_dict(random_compat_weights(
+                cfg, arch).state_dict())
+        model = model.to(dev).requires_grad_(False).eval()
+        outs = []
+
+        def loss_of(vl, vr):
+            out = model((vl - mean) / std, (vr - mean) / std, *calib)
+            outs.append(out)
+            return O.total_loss(out, depth, boxes, num, cfg)
+
+        def pgd_step():
+            vl, vr = (c.clone().requires_grad_(True) for c in clean)
+            loss = loss_of(vl, vr)
+            return (loss.detach(), *torch.autograd.grad(loss, (vl, vr)))
+        r = rec[kind] = {"score_abs_max": []}
+        hooks = [m.register_forward_hook(
+            lambda m, a, y: r["score_abs_max"].append(float(
+                y.detach().abs().max()))) for m in model.modules()
+            if type(m).__name__ == "Score3D"]
+        _cuda.reset_launches()
+        V.reset_traffic()
+        loss, gl, gr = pgd_step()
+        sync()
+        for h in hooks:
+            h.remove()
+        r["pgd_launches"] = dict(_cuda.launches)
+        r["pgd_launch_shapes"] = [[k, list(sh), str(dt), n] for (
+            k, sh, dt), n in _cuda.launch_shapes.items()]
+        r["traffic"] = {k: dict(v) for k, v in V.traffic.items()}
+        arrays[kind + "_loss"] = loss.float().cpu().numpy()
+        for i, dp in enumerate(outs[-1]["depth_preds"]):
+            arrays[f"{kind}_depth{i}"] = dp.detach().float().cpu().numpy()
+        arrays[kind + "_sign_l"], arrays[kind + "_sign_r"] = (
+            torch.sign(x).to(torch.int8).cpu().numpy() for x in (gl, gr))
+        _, radius, patch = init_patch(cfg.height, 0.2)
+        centers = sample_patch_centers(
+            torch.Generator().manual_seed(1), 1, cfg.height, cfg.width,
+            radius)
+        _cuda.reset_launches()
+        new_patch, ploss = patch_update_step(
+            loss_of, patch.to(dev) * 255.0, *clean, *centers, alpha=1e3,
+            eps=8.0)
+        sync()
+        r["patch_launches"] = dict(_cuda.launches)
+        arrays[kind + "_patch"] = new_patch.cpu().numpy()
+        arrays[kind + "_patch_loss"] = ploss.float().cpu().numpy()
+        del outs[:], loss, gl, gr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(2 + MODEL_AXIS_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            pgd_step()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del outs[:]
+        r["step_ms"] = times[2:]
+        r["step_ms_median"] = sorted(times[2:])[MODEL_AXIS_TIMED // 2]
+        r["peak_mem_GiB"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if dev.type == "cuda" else None)
+        del model
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(rec, f)
+    S.destroy_process_group()
+    return 0
+
+
+def model_axis_kernels(c, dev, per):
+    """Phase 2 at the model axis's new shapes (two ranks, `c`'s dtype):
+    K1 and K2 at a rank's planes, K3, K4 dx and the weight gradient at a
+    rank's planes and halo (rank_depthconv_shapes), held against their
+    plain versions and timed into `per`."""
+    import dataclasses
+    n = 2
+    planes = rank_psv_shape(c, n)[1]
+    check_psv(dataclasses.replace(c, num_depth_planes=planes), c.dtype, dev,
+              per)
+    check_depthconv(c, c.dtype, dev, per, {}, shapes=[
+        sh for sh in rank_depthconv_shapes(c, n)
+        if sh not in depthconv_shapes(c)])
+
+
+def model_axis_phase(tmp, card, dev, per, tiny=False):
+    """15. The model axis (parallel/volume.py): DSGN's plane-sweep volume
+    split by depth plane over two gloo ranks sharing the card, mesh
+    (1, 2), at DSGNConfig.full() bf16 on phase 4's first frame. (a) One
+    PGD step and one patch step of the fast DSGN in one process and on
+    the two ranks (`model_axis_run`, fresh processes, one after the
+    other): the loss's relative difference and every depth map within
+    2^-7 (x the largest), the share of image-gradient signs that flip
+    (at most a quarter), the ranks' signs, losses and patches the same
+    bits; each rank launches K1, K2, K3 and K4 dx at its predicted
+    per-rank shapes (`rank_psv_shape`, `rank_depthconv_shapes`), never
+    the weight gradient, where phase 2 held K1-K4 dx against their plain
+    versions (`model_axis_kernels`); (b) the compat model's steps the same
+    way at the upstream default arch (K1 and K2 only), its depth map
+    held by its mean error (2^-10 x the largest) and the share of pixels
+    past 2^-7 (5%), its near-argmax soft-argmin moving a pixel across
+    planes on a rounding; (c)
+    parallel.dryrun at world 4 on the (2, 2) mesh at --scale dryrun.
+    Prints the `model_axis` line: each run's step time, the halo and
+    gather bytes and host ms a PGD step, peak memory per rank. One card
+    cannot show a speed-up. `per` holds phase 2's bf16 records and
+    `model_axis_kernels`'. `tiny` rehearses the phase on the CPU at the
+    tiny config, where no kernel launches and none is held."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    t_phase = time.perf_counter()
+    cfg = DSGNConfig.tiny() if tiny else DSGNConfig.full()
+    data = os.path.join(tmp, "kitti")
+    depth_dir = os.path.join(tmp, "depth_gt")
+    if not os.path.isdir(depth_dir):
+        write_depth_gt(depth_dir, ["000001"])
+    runs = {}
+    for world in (1, 2):
+        out = os.path.join(tmp, "model_axis", f"w{world}")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        t0 = time.perf_counter()
+        res = launch_ranks(world, [
+            sys.executable, os.path.abspath(__file__), "--model-axis",
+            out + "_{rank}", data, depth_dir] + (["tiny"] if tiny else []),
+            timeout=400, cwd=ROOT)
+        secs = time.perf_counter() - t0
+        for r, (rc, _, err) in enumerate(res):
+            check(rc == 0, f"model axis w{world}: rank {r} exited {rc}:\n"
+                  f"{err[-4000:]}")
+        runs[world] = [
+            (dict(np.load(f"{out}_{r}.npz")),
+             json.load(open(f"{out}_{r}.json"))) for r in range(world)]
+        runs[world].append(secs)
+    one, (a0, j0), (a1, j1) = runs[1][0], *runs[2][:2]
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+    per_rank_dc = set(rank_depthconv_shapes(cfg, 2))
+    per_rank_psv = rank_psv_shape(cfg, 2)
+    rec = {"card": card, "mesh": [1, 2], "launch_s": {
+        "one_process": runs[1][-1], "two_ranks": runs[2][-1]}}
+    for kind in ("dsgn", "compat"):
+        keys = [k for k in a0 if k.startswith(kind + "_")]
+        check(all(np.array_equal(a0[k], a1[k]) for k in keys),
+              f"model axis {kind}: the two ranks' results differ in "
+              f"{[k for k in keys if not np.array_equal(a0[k], a1[k])]}")
+        w1 = one[0]
+        loss_rel = float(abs(a0[kind + "_loss"] - w1[kind + "_loss"])
+                         / abs(w1[kind + "_loss"]))
+        depth = {}
+        for k in keys:
+            if "_depth" in k:
+                err = np.abs(a0[k] - w1[k]) / np.abs(w1[k]).max()
+                depth[k.split("_")[-1]] = {
+                    "max": float(err.max()),
+                    "p99_9": float(np.quantile(err, 0.999)),
+                    "mean": float(err.mean()),
+                    "share_over_2^-7": float((err > 2.0 ** -7).mean())}
+        depth_err = max(d["max"] for d in depth.values())
+        signs = [(a0[k] != w1[k]) for k in (kind + "_sign_l",
+                                            kind + "_sign_r")]
+        flips = float(sum(s.sum() for s in signs)
+                      / sum(s.size for s in signs))
+        patch_diff = np.abs(a0[kind + "_patch"] - w1[kind + "_patch"])
+        ploss_rel = float(abs(a0[kind + "_patch_loss"]
+                              - w1[kind + "_patch_loss"])
+                          / abs(w1[kind + "_patch_loss"]))
+        # the compat model's random-weight scores reach |109| in bf16
+        # (steps of 0.5), so its soft-argmin is near an argmax and a
+        # rounding may move a pixel across planes: its depth maps are
+        # held by their mean error and the share of pixels past 2^-7
+        depth_ok = depth_err <= 2.0 ** -7 if kind == "dsgn" else all(
+            d["mean"] <= 2.0 ** -10 and d["share_over_2^-7"] <= 0.05
+            for d in depth.values())
+        gate(loss_rel <= 2.0 ** -7 and ploss_rel <= 2.0 ** -7
+             and depth_ok and flips <= 0.25,
+             f"model axis {kind}: loss {loss_rel:.3g}, patch loss "
+             f"{ploss_rel:.3g} relative, depth {depth_err:.3g} x the "
+             f"largest, {flips:.3g} of the signs flip")
+        ranks = [j0[kind], j1[kind]]
+        if not tiny:
+            for r, jr in enumerate(ranks):
+                pgd, patch = jr["pgd_launches"], jr["patch_launches"]
+                shapes = {(k, tuple(sh)) for k, sh, _, _ in
+                          jr["pgd_launch_shapes"]}
+                if kind == "dsgn":
+                    want = {("psv_warp_fwd", per_rank_psv),
+                            ("psv_warp_bwd", per_rank_psv)} | {
+                        (k, sh) for sh in per_rank_dc for k in (
+                            "depth_tap_conv_fwd", "depth_tap_conv_bwd")}
+                    ok = all(pgd[k] > 0 and patch[k] > 0
+                             for k in ATTACK_KERNELS)
+                else:
+                    want = {("psv_warp_fwd", per_rank_psv),
+                            ("psv_warp_bwd", per_rank_psv)}
+                    ok = all(pgd[k] == 1 and patch[k] == 1 for k in
+                             ("psv_warp_fwd", "psv_warp_bwd")) and not any(
+                        pgd[k] or patch[k] for k in pgd
+                        if k.startswith("depth_tap"))
+                gate(ok and pgd["depth_tap_conv_wgrad"] == 0
+                     and shapes == want,
+                     f"model axis {kind} rank {r}: launches {pgd}, "
+                     f"{patch}, shapes {sorted(shapes)} != {sorted(want)}")
+        rec[kind] = {
+            "loss_one_process": float(w1[kind + "_loss"]),
+            "loss_rel_diff": loss_rel, "depth_rel_err": depth_err,
+            "depth_err_detail": depth,
+            "score_abs_max": [jr["score_abs_max"] for jr in ranks],
+            "score_abs_max_one_process": one[1][kind]["score_abs_max"],
+            "sign_flip_share": flips,
+            "patch_entries_differing": int((patch_diff > 0).sum()),
+            "patch_entries": int(patch_diff.size),
+            "patch_max_abs_diff": float(patch_diff.max()),
+            "patch_max_step": float(np.abs(w1[kind + "_patch"]).max()),
+            "patch_loss_rel_diff": ploss_rel,
+            "step_ms_one_process": one[1][kind]["step_ms_median"],
+            "step_ms_two_ranks": [jr["step_ms_median"] for jr in ranks],
+            "step_ms_all": {"one_process": one[1][kind]["step_ms"],
+                            "two_ranks": [jr["step_ms"] for jr in ranks]},
+            "peak_mem_GiB_one_process": one[1][kind]["peak_mem_GiB"],
+            "peak_mem_GiB_per_rank": [jr["peak_mem_GiB"] for jr in ranks],
+            "traffic_per_pgd_step": [jr["traffic"] for jr in ranks],
+            "rank_launches": [jr["pgd_launches"] for jr in ranks],
+            "rank_patch_launches": [jr["patch_launches"] for jr in ranks]}
+    # a rank's kernels a PGD step: phase 2's times at the rank's shapes
+    if not tiny:
+        counts = launch_counts(j0["dsgn"]["pgd_launch_shapes"])
+        timed_here = {k: v for k, v in per.items() if k[2] == cfg.dtype
+                      and (k[0], k[1]) in counts}
+        gate({(k, s) for k, s, _ in timed_here} == set(counts),
+             f"model axis: the ranks' shapes {sorted(counts)} are not all "
+             f"timed: {sorted(timed_here)}")
+        rec["rank_kernels_per_pgd_step"] = {
+            k: dict(max_abs_err=v["err"], launches=v["launches_per_iter"],
+                    **{m: v[m] for m in TIME_KEYS},
+                    bound_ms=bound(v, cfg.dtype)[0],
+                    bound_by=bound(v, cfg.dtype)[1])
+            for k, v in per_iteration(timed_here, counts,
+                                      cfg.dtype).items()}
+        rec["rank_kernel_detail"] = detail_rows(
+            {k: v for k, v in timed_here.items()
+             if k[1] not in depthconv_shapes(cfg)}, counts)
+    # (c) the dry run at world 4 on the (2, 2) mesh
+    t0 = time.perf_counter()
+    res = launch_ranks(4, [
+        sys.executable, "-m", "eval_driving_safety_tpu_torch.parallel.dryrun",
+        "--scale", "tiny" if tiny else "dryrun"] + (
+            ["--device", "cpu"] if tiny else []), timeout=300, cwd=ROOT)
+    for r, (rc, _, err) in enumerate(res):
+        gate(rc == 0, f"dryrun rank {r} exited {rc}:\n{err[-4000:]}")
+    lines = res[0][1].strip().splitlines()
+    if lines and lines[-1].startswith("dryrun_multichip(4): DSGN mesh="
+                                      "{'data': 2, 'model': 2}") \
+            and lines[-1].endswith("ckpt-restore OK"):
+        rec["dryrun"] = dict(json.loads(lines[-2])["dryrun"],
+                             launch_s=time.perf_counter() - t0,
+                             line=lines[-1])
+    else:
+        gate(False, f"dryrun printed {lines[-2:]}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["note"] = ("one H100: the ranks share it over gloo (NCCL refuses "
+                   "two ranks on one device), so no speed-up can be shown")
+    log(json.dumps({"model_axis": rec}))
+    check(not failures, "; ".join(failures))
+    return rec
+
+
+def launch_counts(launch_shapes):
+    """{(kernel, shape): launches} of a rank's recorded launch shapes."""
+    counts = {}
+    for k, sh, _, n in launch_shapes:
+        counts[(k, tuple(sh))] = counts.get((k, tuple(sh)), 0) + n
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4971,6 +5357,10 @@ def main():
     check_depthconv_edges(dev)
     check_depthconv_wgrad_edges(dev)
     check_psv_edges(dev)
+    # ... and at the model axis's per-rank shapes (phase 15)
+    per_ranks = {}
+    model_axis_kernels(full, dev, per_ranks)
+    torch.cuda.empty_cache()
     lap("2_kernels")
 
     # 3. tiny model: card vs CPU
@@ -5030,6 +5420,9 @@ def main():
         # 14. the JAX trainer's orbax checkpoint: read, attacked, resumed
         orbax_phase(tmp, dev, card)
         lap("14_orbax")
+        # 15. the model axis: two gloo ranks on this card split the planes
+        model_axis = model_axis_phase(tmp, card, dev, {**per, **per_ranks})
+        lap("15_model_axis")
     torch.cuda.empty_cache()
     dsgn_steady = steady_state(full, dev, card)
     lap("4_attack_steady_state")
@@ -5139,6 +5532,12 @@ def main():
             # phase 13: each rank's launches in the split DSGN sweep
             "split_sweep_rank_launches": [
                 r[name] for r in split["dsgn_sweep"]["rank_launches"]],
+            # phase 15: each model rank's launches in one PGD step of the
+            # fast DSGN and of the compat model, the planes split in two
+            "model_axis_rank_launches_per_pgd_step": [
+                r[name] for r in model_axis["dsgn"]["rank_launches"]],
+            "model_axis_compat_rank_launches_per_pgd_step": [
+                r[name] for r in model_axis["compat"]["rank_launches"]],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
@@ -5155,6 +5554,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-run"]:
         sys.exit(rank_run(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--model-axis"]:
+        sys.exit(model_axis_run(*sys.argv[2:5], tiny=sys.argv[5:] == ["tiny"]))
     if sys.argv[1:2] == ["--first-step"]:
         sys.exit(first_step_run(*sys.argv[2:5], tiny=sys.argv[5:] == ["tiny"]))
     sys.exit(main())

@@ -209,11 +209,50 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return y.to(x.dtype).contiguous()
 
 
-def resize_trilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+def resize_trilinear(x: torch.Tensor, size: Sequence[int],
+                     shard=None) -> torch.Tensor:
     """(N, D, H, W, C) trilinear upsample to (D', H', W'), matching
-    `jax.image.resize(..., "linear")` when no axis shrinks."""
+    `jax.image.resize(..., "linear")` when no axis shrinks.
+
+    With `shard` (a parallel.volume.VolumeShard) x holds this model
+    rank's planes of a volume split evenly by depth plane, and D' is the
+    rank's planes of the result: the whole upsample's planes there, read
+    from a halo of one plane on each side (the volume's edge behaviour
+    stays at its ends)."""
     if any(s < n for s, n in zip(size, x.shape[1:4])):
         raise ValueError("resize_trilinear only upsamples")
+    if shard is not None:
+        x = _resize_planes(x, size[0], shard)
     for axis, n in zip((1, 2, 3), size):
         x = _resize_axis(x, axis, n)
     return x.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_window(k_in: int, k_out: int, n: int, rank: int,
+                  device: str) -> torch.Tensor:
+    """(k_out, k_in + 2) weights of model rank `rank`'s output planes of
+    the whole (n k_in -> n k_out) resize over its planes and one halo
+    plane on each side; raises if a weight falls outside that window."""
+    with torch.inference_mode(False):
+        m = resize_matrix(k_in * n, k_out * n, "cpu")
+        rows = m[rank * k_out:(rank + 1) * k_out]
+        cols = torch.arange(rank * k_in - 1, (rank + 1) * k_in + 1)
+        inside = (cols >= 0) & (cols < k_in * n)
+        window = torch.zeros(k_out, k_in + 2)
+        window[:, inside] = rows[:, cols[inside]]
+        if float(rows.abs().sum() - window.abs().sum()) != 0.0:
+            raise ValueError(f"a resize of {k_in * n} -> {k_out * n} planes "
+                             "reads more than one plane past a rank's")
+        return window.to(device)
+
+
+def _resize_planes(x: torch.Tensor, k_out: int, shard) -> torch.Tensor:
+    from eval_driving_safety_tpu_torch.parallel.volume import halo_exchange
+    k_in = x.shape[1]
+    if k_in == k_out:
+        return x
+    m = _plane_window(k_in, k_out, shard.n, shard.rank,
+                      str(x.device)).to(x.dtype)
+    xe = halo_exchange(x, shard, 1, 1)
+    return torch.movedim(torch.movedim(xe, 1, -1) @ m.t(), -1, 1)

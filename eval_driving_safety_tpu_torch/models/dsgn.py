@@ -7,6 +7,16 @@ same channel-last layouts and the same parameter names: stereo features
 stride-1 depth stages run the fused kernel (ops.depthconv) -> Score3D +
 soft-argmin depth at three scales, and a 3D geometric volume -> BEV
 detection head.
+
+`DSGN(cfg, volume_constraint=parallel.volume.constrain_psv(mesh))` runs
+on the model axis, as JAX's `DSGN(cfg, volume_constraint=partial(
+constrain_psv, mesh=mesh))`: each rank of a model group builds and
+convolves its depth planes of the volume (K1 on them; K3 with a halo of
+one plane on each side; the stride-2 depth stages with one plane above),
+the depth scores are gathered over the planes for the soft-argmin, the
+3D geometric volume is gathered over its Z slices, and the voxel convs,
+the BEV head and the loss run alike on every model rank. Its weights
+must be frozen there (parallel.volume.require_frozen).
 """
 from __future__ import annotations
 
@@ -23,8 +33,11 @@ from eval_driving_safety_tpu_torch.models.common import (
     resize_trilinear, same_pads)
 from eval_driving_safety_tpu_torch.ops.cost_volume import (
     depth_planes, psv_to_3dgv, soft_argmin_depth)
-from eval_driving_safety_tpu_torch.ops.depthconv import depth_tap_conv
+from eval_driving_safety_tpu_torch.ops.depthconv import (
+    depth_tap_conv, depth_tap_conv_planes)
 from eval_driving_safety_tpu_torch.ops.psv_warp import build_psv
+from eval_driving_safety_tpu_torch.parallel.volume import (
+    enter_volume, gather_planes, halo_exchange)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -87,7 +100,8 @@ class ConvBnRelu2p1D(nn.Module):
     batch ("SAME" padding), then 3 taps over D, frozen BN and ReLU.
 
     Stride-1 blocks run the depth stage as the fused kernel; stride-2
-    blocks run it as a library conv over D, as the JAX model does."""
+    blocks run it as a library conv over D, as the JAX model does. With
+    `shard` the input is a model rank's planes of the volume."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  relu: bool = True, dtype=torch.float32):
@@ -98,16 +112,25 @@ class ConvBnRelu2p1D(nn.Module):
         self.FrozenBatchNorm_0 = FrozenBatchNorm(features)
         self.stride, self.relu, self.dtype = stride, relu, dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:    # (B, D, H, W, C)
+    def forward(self, x: torch.Tensor,
+                shard=None) -> torch.Tensor:        # (B, D, H, W, C)
         b, d, h, w, c = x.shape
         y = self.spatial(x.reshape(b * d, h, w, c))
         h2, w2, f = y.shape[1], y.shape[2], y.shape[3]
         y = y.reshape(b, d, h2, w2, f)
         if self.stride == 1:
             inv, off = self.FrozenBatchNorm_0.folded()
-            return depth_tap_conv(y, self.depth.weight, inv.to(self.dtype),
-                                  off.to(self.dtype), relu=self.relu)
-        lo, hi = same_pads(d, 3, self.stride)
+            args = (y, self.depth.weight, inv.to(self.dtype),
+                    off.to(self.dtype))
+            if shard is None:
+                return depth_tap_conv(*args, relu=self.relu)
+            return depth_tap_conv_planes(*args, self.relu, shard)
+        if shard is None:
+            lo, hi = same_pads(d, 3, self.stride)
+        else:
+            # "SAME" over the volume's even D is (0, 1): output plane j
+            # reads planes 2j..2j+2, the last of a rank's from the next
+            y, lo, hi = halo_exchange(y, shard, 0, 1), 0, 0
         kern = self.depth.weight.to(self.dtype).permute(2, 1, 0)
         z = F.conv3d(F.pad(y.permute(0, 4, 1, 2, 3), (0, 0, 0, 0, lo, hi)),
                      kern[..., None, None], stride=(self.stride, 1, 1))
@@ -127,10 +150,13 @@ class Score3D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1)) if bias else None
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        pad = 1
+        if shard is not None:          # a model rank's planes: no D padding
+            x, pad = halo_exchange(x, shard, 1, 1), (0, 1, 1)
         y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
-                     self.weight.to(self.dtype), bias, padding=1)
+                     self.weight.to(self.dtype), bias, padding=pad)
         return y[:, 0]
 
 
@@ -148,13 +174,13 @@ class Hourglass3D(nn.Module):
             self.add_module(f"ConvBnRelu2p1D_{i}", ConvBnRelu2p1D(
                 ci, co, s, dtype=dtype))
 
-    def forward(self, x):
-        layer = lambda i: getattr(self, f"ConvBnRelu2p1D_{i}")
-        x0 = layer(0)(x)
-        d1 = layer(2)(layer(1)(x0))
-        d2 = layer(4)(layer(3)(d1))
-        u1 = layer(5)(resize_trilinear(d2, d1.shape[1:4])) + d1
-        u0 = layer(6)(resize_trilinear(u1, x0.shape[1:4])) + x0
+    def forward(self, x, shard=None):
+        layer = lambda i, t: getattr(self, f"ConvBnRelu2p1D_{i}")(t, shard)
+        x0 = layer(0, x)
+        d1 = layer(2, layer(1, x0))
+        d2 = layer(4, layer(3, d1))
+        u1 = layer(5, resize_trilinear(d2, d1.shape[1:4], shard)) + d1
+        u0 = layer(6, resize_trilinear(u1, x0.shape[1:4], shard)) + x0
         return d1, u1, u0
 
 
@@ -181,16 +207,18 @@ class DSGN(nn.Module):
     """Stereo pair + calibration -> depth maps + BEV detections.
 
     Inputs: im_left/im_right (B, H, W, 3) normalized RGB, calib_fu,
-    calib_baseline, calib_cu, calib_cv (B,) float32."""
+    calib_baseline, calib_cu, calib_cv (B,) float32. `volume_constraint`
+    (parallel.volume.constrain_psv(mesh)) splits the plane-sweep volume
+    over the mesh's model group; None runs the whole volume here."""
 
-    def __init__(self, cfg: DSGNConfig):
+    def __init__(self, cfg: DSGNConfig, volume_constraint=None):
         super().__init__()
         if (cfg.psv_method, cfg.depthconv_method) != ("kernel", "kernel"):
             raise ValueError(
                 f"psv_method {cfg.psv_method!r}, depthconv_method "
                 f"{cfg.depthconv_method!r}: the port runs the kernels "
                 f"(\"kernel\"); their plain versions serve CPU tensors")
-        self.cfg = cfg
+        self.cfg, self.volume_constraint = cfg, volume_constraint
         dt = torch_dtype(cfg.dtype)
         fc, pc, gc = cfg.feature_channels, cfg.psv_channels, cfg.gv_channels
         self.StereoFeatureNet_0 = StereoFeatureNet(fc, dtype=dt)
@@ -223,27 +251,30 @@ class DSGN(nn.Module):
 
     def forward(self, im_left, im_right, calib_fu, calib_baseline,
                 calib_cu, calib_cv) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
+        cfg, shard = self.cfg, self.volume_constraint
         dt = torch_dtype(cfg.dtype)
         stride = cfg.feature_stride
         planes = depth_planes(cfg.min_depth, cfg.max_depth,
                               cfg.num_depth_planes, device=im_left.device)
         fl = self.StereoFeatureNet_0(im_left.to(dt))
         fr = self.StereoFeatureNet_0(im_right.to(dt))
+        fl, fr, mine = enter_volume(self, shard, fl, fr, planes)
         psv = build_psv(fl, fr, calib_fu.to(dt), calib_baseline.to(dt),
-                        planes.to(dt), stride)                 # (B,D,H,W,2C)
+                        mine.to(dt), stride)                   # (B,D,H,W,2C)
 
         if cfg.remat:
-            s0, s1, s2 = checkpoint(self.Hourglass3D_0, psv,
+            s0, s1, s2 = checkpoint(self.Hourglass3D_0, psv, shard,
                                     use_reentrant=False)
         else:
-            s0, s1, s2 = self.Hourglass3D_0(psv)
+            s0, s1, s2 = self.Hourglass3D_0(psv, shard)
 
         full_h, full_w = im_left.shape[1], im_left.shape[2]
         depth_preds = []
         scales = (s0, s1, s2)[-cfg.num_depth_preds:]
         for i, s in enumerate(scales):
-            score = getattr(self, f"depth_score{i}")(s)
+            score = getattr(self, f"depth_score{i}")(s, shard)
+            if shard is not None:
+                score = gather_planes(score, shard)
             if score.shape[1] != cfg.num_depth_planes:
                 score = resize_trilinear(
                     score[..., None], (cfg.num_depth_planes, psv.shape[2],
@@ -254,9 +285,9 @@ class DSGN(nn.Module):
         out = {"depth_preds": depth_preds}
 
         if cfg.rpn3d_enable:
-            gv_in = self.ConvBnRelu2p1D_0(s2)
+            gv_in = self.ConvBnRelu2p1D_0(s2, shard)
             voxels = psv_to_3dgv(gv_in, planes, calib_fu, calib_cu,
-                                 calib_cv, cfg, stride)        # (B,Z,Y,X,C)
+                                 calib_cv, cfg, stride, shard)  # (B,Z,Y,X,C)
             voxels = self.ConvBnRelu2p1D_2(
                 self.ConvBnRelu2p1D_1(voxels.to(dt)))
             b, z, y, x, c = voxels.shape

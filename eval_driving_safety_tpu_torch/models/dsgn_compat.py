@@ -25,6 +25,13 @@ in the rest of the port: a conv sees its input as a `channels_last` view.
 Outputs use the fast model's keys (`depth_preds`, `bbox_cls`,
 `bbox_reg`, `bbox_centerness`), so the attack, predict and patch CLIs
 drive either model.
+
+On the model axis (`volume_constraint`, as models/dsgn.py) each rank
+builds and convolves its depth planes; the 3D convs take halos that
+follow PyTorch's padding: a stride-1 conv one plane on each side, a
+stride-2 conv (padding 1) one plane below, the transposed conv (k 3, s 2,
+p 1, output padding 1) one plane above. The score, the soft-argmin and
+the 3D geometric volume are as in the fast model.
 """
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ from eval_driving_safety_tpu_torch.models.dsgn import Score3D, torch_dtype
 from eval_driving_safety_tpu_torch.ops.cost_volume import (
     depth_planes, psv_to_3dgv, soft_argmin_depth)
 from eval_driving_safety_tpu_torch.ops.psv_warp import build_psv
+from eval_driving_safety_tpu_torch.parallel.volume import (
+    enter_volume, gather_planes, halo_exchange)
 
 
 @dataclass(frozen=True)
@@ -101,7 +110,10 @@ class BatchNorm(nn.Module):
 
 class Conv3d(nn.Module):
     """3x3x3 conv, padding 1, no bias, on (B, D, H, W, C); weight in
-    nn.Conv3d's (O, I, 3, 3, 3) layout."""
+    nn.Conv3d's (O, I, 3, 3, 3) layout. With `shard` the input is a model
+    rank's planes: a halo of one plane on each side (stride 1) or below
+    them (stride 2: output plane j reads planes 2j-1..2j+1), no D
+    padding."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  dtype=torch.float32):
@@ -109,9 +121,12 @@ class Conv3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3, 3))
         self.stride, self.dtype = stride, dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        pad = 1
+        if shard is not None:
+            x, pad = halo_exchange(x, shard, 1, 2 - self.stride), (0, 1, 1)
         y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
-                     self.weight.to(self.dtype), None, self.stride, 1)
+                     self.weight.to(self.dtype), None, self.stride, pad)
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -125,11 +140,20 @@ class ConvTranspose3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, cout, 3, 3, 3))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
-                               self.weight.to(self.dtype), stride=2,
-                               padding=1, output_padding=1)
-        return y.permute(0, 2, 3, 4, 1).contiguous()
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is None:
+            y = F.conv_transpose3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
+                                   self.weight.to(self.dtype), stride=2,
+                                   padding=1, output_padding=1)
+            return y.permute(0, 2, 3, 4, 1).contiguous()
+        # a model rank's planes: output planes 2i and 2i+1 read input
+        # planes i and i+1, the last of a rank's from the next rank
+        d = x.shape[1]
+        y = F.conv_transpose3d(
+            halo_exchange(x, shard, 0, 1).to(self.dtype).permute(
+                0, 4, 1, 2, 3), self.weight.to(self.dtype), stride=2,
+            padding=1, output_padding=(0, 1, 1))
+        return y[:, :, :2 * d].permute(0, 2, 3, 4, 1).contiguous()
 
 
 class GroupNorm(nn.GroupNorm):
@@ -158,6 +182,20 @@ class AvgPool(nn.Module):
         oh, ow = h // ph, w // pw
         y = x[:, :oh * ph, :ow * pw].float().reshape(b, oh, ph, ow, pw, c)
         return y.mean((2, 4)).to(x.dtype)
+
+
+def run_planes(module: nn.Module, x: torch.Tensor, shard) -> torch.Tensor:
+    """`module(x)`, with `shard` passed on to the 3D convs and the score
+    inside it (through Sequentials); the other layers act per plane."""
+    if shard is None:
+        return module(x)
+    if isinstance(module, (Conv3d, ConvTranspose3d, Score3D)):
+        return module(x, shard)
+    if isinstance(module, nn.Sequential):
+        for m in module:
+            x = run_planes(m, x, shard)
+        return x
+    return module(x)
 
 
 class ConvBn(nn.Sequential):
@@ -261,11 +299,12 @@ class Hourglass(nn.Module):
         self.conv5 = ConvBn(ConvTranspose3d(c, c, dtype), c)
         self.conv6 = ConvBn(ConvTranspose3d(c, cin, dtype), cin)
 
-    def forward(self, x):
-        pre = torch.relu(self.conv2(self.conv1(x)))
-        out2 = self.conv4(self.conv3(pre))
-        post = torch.relu(self.conv5(out2) + pre)
-        return self.conv6(post)
+    def forward(self, x, shard=None):
+        run = lambda m, t: run_planes(m, t, shard)
+        pre = torch.relu(run(self.conv2, run(self.conv1, x)))
+        out2 = run(self.conv4, run(self.conv3, pre))
+        post = torch.relu(run(self.conv5, out2) + pre)
+        return run(self.conv6, post)
 
 
 class BEVHead(nn.Module):
@@ -306,12 +345,15 @@ def bev_collapse(voxels: torch.Tensor) -> torch.Tensor:
 class DSGNCompat(nn.Module):
     """Upstream-topology DSGN, with the fast model's call signature and
     output keys; `cfg` gives the geometry (input size, planes, voxel
-    grid, dtype), `arch` the layer widths."""
+    grid, dtype), `arch` the layer widths; `volume_constraint` as
+    models.dsgn.DSGN's."""
 
     def __init__(self, cfg: DSGNConfig,
-                 arch: DSGNCompatArch = DSGNCompatArch()):
+                 arch: DSGNCompatArch = DSGNCompatArch(),
+                 volume_constraint=None):
         super().__init__()
         self.cfg, self.arch = cfg, arch
+        self.volume_constraint = volume_constraint
         dt = torch_dtype(cfg.dtype)
         a = arch
         cv = a.cv_channels
@@ -349,28 +391,32 @@ class DSGNCompat(nn.Module):
 
     def forward(self, im_left, im_right, calib_fu, calib_baseline,
                 calib_cu, calib_cv) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
+        cfg, shard = self.cfg, self.volume_constraint
         dt = torch_dtype(cfg.dtype)
         stride = cfg.feature_stride
         planes = depth_planes(cfg.min_depth, cfg.max_depth,
                               cfg.num_depth_planes, device=im_left.device)
         fl = self.feature_extraction(im_left.to(dt))
         fr = self.feature_extraction(im_right.to(dt))
+        fl, fr, mine = enter_volume(self, shard, fl, fr, planes)
         psv = build_psv(fl, fr, calib_fu.to(dt), calib_baseline.to(dt),
-                        planes.to(dt), stride)                 # (B,D,H,W,2C)
-        x = self.dres0(psv)
-        x = self.dres1(x) + x
-        hg = (checkpoint(self.hg1, x, use_reentrant=False) if cfg.remat
-              else self.hg1(x)) + x
-        score = self.classif1(hg)                              # (B,D,H,W)
+                        mine.to(dt), stride)                   # (B,D,H,W,2C)
+        run = lambda m, t: run_planes(m, t, shard)
+        x = run(self.dres0, psv)
+        x = run(self.dres1, x) + x
+        hg = (checkpoint(self.hg1, x, shard, use_reentrant=False)
+              if cfg.remat else self.hg1(x, shard)) + x
+        score = run(self.classif1, hg)                         # (B,D,H,W)
+        if shard is not None:
+            score = gather_planes(score, shard)
         depth = soft_argmin_depth(score.float(), planes)
         depth = resize_bilinear(depth[..., None], im_left.shape[1],
                                 im_left.shape[2])[..., 0]
         out = {"depth_preds": [depth]}
         if cfg.rpn3d_enable:
-            gv = torch.relu(self.rpn3d_conv(hg))
+            gv = torch.relu(run(self.rpn3d_conv, hg))
             voxels = psv_to_3dgv(gv, planes, calib_fu, calib_cu, calib_cv,
-                                 cfg, stride)                  # (B,Z,Y,X,C)
+                                 cfg, stride, shard)           # (B,Z,Y,X,C)
             voxels = torch.relu(self.rpn3d_conv2(voxels.to(dt)))
             bev = torch.relu(self.rpn3d_conv3(bev_collapse(voxels)))
             cls, reg, ctr = self.rpn3d(bev)

@@ -6,7 +6,8 @@ Counterpart of eval_driving_safety_tpu/ops/cost_volume.py. Volumes are
 channel-last: PSV (B, D, H, W, C), voxels (B, Z, Y, X, C). The 3DGV
 resample is the JAX package's separable form (a depth lerp, then one
 row and one column interpolation matrix per voxel slice), computed with
-`torch.einsum`; it is a plain product outside any kernel.
+`torch.einsum`; it is a plain product outside any kernel. On the model
+axis each rank resamples the voxel slices of its own planes.
 """
 from __future__ import annotations
 
@@ -65,11 +66,20 @@ def soft_argmin_depth(cost: torch.Tensor,
 
 
 def psv_to_3dgv(vol, planes, calib_fu, calib_cu, calib_cv, cfg,
-                stride: int) -> torch.Tensor:
+                stride: int, shard=None) -> torch.Tensor:
     """Resample frustum features (B, D, Hf, Wf, C) into the voxel grid
     (B, Z, Y, X, C) by pinhole projection per image: voxel (x, y, z) reads
     u = f x / z + cu, v = f y / z + cv (over `stride` for feature
-    pixels) at the fractional plane index of z."""
+    pixels) at the fractional plane index of z.
+
+    With `shard` (a parallel.volume.VolumeShard) `vol` holds this model
+    rank's planes [lo, hi) of the volume, and `planes` all D plane depths.
+    The rank computes the voxel slices z whose lerp reads planes
+    floor(di) and floor(di) + 1 with floor(di) in [lo, hi) (clamped to the
+    volume; the slices outside it are zero), from its planes and a halo of
+    one plane above them, and the slices of every rank are gathered along
+    Z: each slice is computed as one process computes it, and the result
+    is the whole grid on every model rank."""
     d = planes.shape[0]
     dev, dtype = vol.device, vol.dtype
     zs_np = np.linspace(cfg.voxel_z_min, cfg.voxel_z_max, cfg.num_voxels_z)
@@ -77,12 +87,27 @@ def psv_to_3dgv(vol, planes, calib_fu, calib_cu, calib_cv, cfg,
     xs_np = np.linspace(cfg.voxel_x_min, cfg.voxel_x_max, cfg.num_voxels_x)
     z0 = float(cfg.min_depth)
     dz = (float(cfg.max_depth) - float(cfg.min_depth)) / (d - 1)
-    di = torch.as_tensor((zs_np - z0) / dz, dtype=torch.float32, device=dev)
+    di_np = ((zs_np - z0) / dz).astype(np.float32)
+    if shard is not None:
+        from eval_driving_safety_tpu_torch.parallel.volume import (
+            gather_planes, halo_exchange)
+        lo, hi = shard.planes(d)
+        owner = np.clip(np.floor(di_np), 0, d - 1).astype(np.int64) // (
+            hi - lo)
+        sizes = [int((owner == r).sum()) for r in range(shard.n)]
+        first = sum(sizes[:shard.rank])
+        mine = slice(first, first + sizes[shard.rank])
+        zs_np, di_np = zs_np[mine], di_np[mine]
+        vol = halo_exchange(vol, shard, 0, 1)
+    di = torch.as_tensor(di_np, device=dev)
     zs = torch.as_tensor(zs_np, dtype=torch.float32, device=dev)
     ys = torch.as_tensor(ys_np, dtype=torch.float32, device=dev)
     xs = torch.as_tensor(xs_np, dtype=torch.float32, device=dev)
 
     wd = tent_weights(di, d, dtype=dtype)                         # (Z, D)
+    if shard is not None:
+        # the rank's planes and the halo plane (a zero column past D)
+        wd = torch.nn.functional.pad(wd, (0, 1))[:, lo:hi + 1]
     mid = torch.einsum("zd,bdhwc->bzhwc", wd, vol)
     fu = calib_fu.float()[:, None, None]
     v = (fu * ys[None, None, :] / zs[None, :, None]
@@ -92,4 +117,7 @@ def psv_to_3dgv(vol, planes, calib_fu, calib_cu, calib_cv, cfg,
     wv = tent_weights(v, vol.shape[2], dtype=dtype)               # (B,Z,Y,H)
     wu = tent_weights(u, vol.shape[3], dtype=dtype)               # (B,Z,X,W)
     rows = torch.einsum("bzyh,bzhwc->bzywc", wv, mid)
-    return torch.einsum("bzxw,bzywc->bzyxc", wu, rows)
+    out = torch.einsum("bzxw,bzywc->bzyxc", wu, rows)
+    if shard is not None:
+        out = gather_planes(out, shard, sizes)
+    return out

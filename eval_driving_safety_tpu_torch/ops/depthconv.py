@@ -34,6 +34,13 @@ inv G, d inv = sum W G, d off = sum dm, the same bits on every run
 In fp32 one CUDA-core kernel recomputes z and sums with f32 atomics. The
 dx kernel counts as a launch of `depth_tap_conv_bwd`, the weight
 gradient as one of `depth_tap_conv_wgrad`.
+
+On the model axis (parallel/volume.py) a rank holds D_local planes of the
+volume: `depth_tap_conv_planes` runs the same kernels on them with a halo
+of one plane on each side (D_local + 2 planes; zero planes at the
+volume's ends are the kernel's own zero padding) and keeps the middle
+D_local output planes. K4 dx computes the halo planes' dx too, which the
+exchange's backward returns to the ranks that own them.
 """
 from __future__ import annotations
 
@@ -180,3 +187,12 @@ def depth_tap_conv(x5, w, inv, off, relu: bool = True):
                             inv.to(x5.dtype).contiguous(),
                             off.to(x5.dtype).contiguous(), bool(relu))
     return y.reshape(b, d, h, wd, w.shape[-1])
+
+
+def depth_tap_conv_planes(x5, w, inv, off, relu: bool, shard):
+    """`depth_tap_conv` on this model rank's planes of a volume split by
+    depth plane (`shard`, a parallel.volume.VolumeShard): the rank's
+    part of the whole volume's result."""
+    from eval_driving_safety_tpu_torch.parallel.volume import halo_exchange
+    y = depth_tap_conv(halo_exchange(x5, shard, 1, 1), w, inv, off, relu)
+    return y[:, 1:-1]

@@ -1,4 +1,5 @@
-"""The batch split over torch.distributed (data parallelism)."""
+"""The batch split (data parallelism) and the model axis (the plane-sweep
+volume's depth planes) over torch.distributed."""
 from eval_driving_safety_tpu_torch.parallel.sharding import (  # noqa: F401
     BatchSharding,
     Mesh,
@@ -9,4 +10,8 @@ from eval_driving_safety_tpu_torch.parallel.sharding import (  # noqa: F401
     shard_batch,
     sharded_patch_step,
     sharded_pgd_step,
+)
+from eval_driving_safety_tpu_torch.parallel.volume import (  # noqa: F401
+    VolumeShard,
+    constrain_psv,
 )

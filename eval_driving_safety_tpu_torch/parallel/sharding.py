@@ -11,10 +11,11 @@ rank of the data axis, and the reductions are written out:
   process, no process group is made and every collective below is the
   identity; a partial environment, or a process group that cannot be
   made, raises;
-* a global batch whose size divides by the world size is split into
-  contiguous blocks of rows, rank r taking block r (`dp_sharding`); any
-  other batch stays whole on every rank, as JAX replicates it, and rank
-  0 alone writes its outputs;
+* a global batch whose size divides by the number of data rows (the
+  world size, without a model axis) is split into contiguous blocks of
+  rows, data row r taking block r (`dp_sharding`); any other batch stays
+  whole on every rank, as JAX replicates it, and rank 0 alone writes its
+  outputs;
 * while a split batch is computed (`with sharding:`), `global_sum` adds
   a loss's normalizers (counts, mask sums) over the ranks and
   `global_mean` divides by the global row count, so each rank's loss is
@@ -30,8 +31,15 @@ NCCL serves ranks that each have a card of their own; ranks that share a
 card, and ranks on the CPU, use gloo (NCCL refuses two ranks on one
 device), which reduces host copies of the (small) tensors.
 
-The model axis (the JAX package's `constrain_psv`, the depth planes of
-the plane-sweep volume over devices) is not here: `make_mesh` refuses it.
+The model axis (the JAX package's `constrain_psv`): `make_mesh(n_data,
+n_model)` lays a world of n_data x n_model ranks out as JAX's
+`reshape(n_data, n_model)` does, rank r being data row r // n_model and
+model rank r % n_model. The ranks of one data row (its model group) split
+DSGN's plane-sweep volume by depth plane (parallel/volume.py) and compute
+the same rows; the ranks of one model index (a data group) split the
+batch. So every reduction above runs over the data group only: summed
+over the whole world, each normalizer would count n_model times. At
+n_model = 1 the data group is the world, and no group is made.
 """
 from __future__ import annotations
 
@@ -39,8 +47,8 @@ import contextlib
 import contextvars
 import datetime
 import os
-from dataclasses import dataclass
-from typing import Callable, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -53,11 +61,31 @@ TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
 
 @dataclass(frozen=True)
 class Mesh:
-    """The data axis: `world` ranks, this process being `rank`, which
-    computes on `device`."""
+    """`world` ranks, this process being `rank`, which computes on
+    `device`, laid out as (world // n_model) data rows of `n_model` model
+    ranks. `data_group` and `model_group` are this rank's process groups
+    along each axis (None where the axis is the whole world or one
+    rank)."""
     world: int = 1
     rank: int = 0
     device: torch.device = torch.device("cpu")
+    n_model: int = 1
+    data_group: Any = field(default=None, compare=False, repr=False)
+    model_group: Any = field(default=None, compare=False, repr=False)
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_model
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data row."""
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index in its model group."""
+        return self.rank % self.n_model
 
 
 def torchrun_env() -> Optional[dict]:
@@ -120,19 +148,34 @@ def destroy_process_group() -> None:
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device: str = "cpu") -> Mesh:
-    """The data axis of this process's group (`init_process_group`; one
-    process without one), which must have `n_data` ranks where that is
-    given, computing on `device`. The model axis is not ported."""
-    if n_model != 1:
-        raise NotImplementedError(
-            "the model axis (depth planes over devices, the JAX package's "
-            "constrain_psv) is not ported; ROADMAP item 17 holds it")
+    """The (data, model) mesh of this process's group
+    (`init_process_group`; one process without one), computing on
+    `device`: the world must hold n_data x n_model ranks (n_data, where
+    not given, is the world over n_model). Rank r is data row r // n_model
+    and model rank r % n_model. With n_model > 1 every rank makes the
+    model groups (one a data row) and then the data groups (one a model
+    index), in that order, and keeps its own two."""
     world, rank = ((dist.get_world_size(), dist.get_rank())
                    if dist.is_initialized() else (1, 0))
-    if n_data is not None and n_data != world:
-        raise ValueError(f"make_mesh({n_data}) in a world of {world} "
-                         f"ranks; launch {n_data} ranks with torchrun")
-    return Mesh(world, rank, torch.device(device))
+    if n_model < 1 or (n_data is not None and n_data < 1):
+        raise ValueError(f"make_mesh({n_data}, {n_model}): axes of at "
+                         "least one rank")
+    if n_data is None:
+        n_data = max(world // n_model, 1)
+    if n_data * n_model != world:
+        raise ValueError(f"make_mesh({n_data}, {n_model}) in a world of "
+                         f"{world} ranks; launch {n_data * n_model} ranks "
+                         "with torchrun")
+    if n_model == 1:
+        return Mesh(world, rank, torch.device(device))
+    model_groups = [dist.new_group(list(range(r * n_model,
+                                              (r + 1) * n_model)))
+                    for r in range(n_data)]
+    data_groups = [dist.new_group(list(range(m, world, n_model)))
+                   for m in range(n_model)]
+    return Mesh(world, rank, torch.device(device), n_model,
+                data_groups[rank % n_model] if n_data > 1 else None,
+                model_groups[rank // n_model])
 
 
 def barrier() -> None:
@@ -159,10 +202,10 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("batch_sharding",
 @dataclass
 class BatchSharding:
     """How a global batch of `n` rows lies on the data axis: split into
-    contiguous blocks of rows, or, where `n` does not divide by the world
-    size (or the world is one process), whole on every rank. Inside `with
-    sharding:` the loss helpers below reduce over the ranks that share
-    the batch."""
+    contiguous blocks of rows, or, where `n` does not divide by the data
+    rows (or there is one), whole on every rank. Inside `with sharding:`
+    the loss helpers below reduce over the ranks that share the batch
+    (the data group)."""
     mesh: Mesh
     n: int
     split: bool
@@ -172,14 +215,16 @@ class BatchSharding:
         """This rank's rows of the global batch."""
         if not self.split:
             return slice(0, self.n)
-        k = self.n // self.mesh.world
-        return slice(self.mesh.rank * k, (self.mesh.rank + 1) * k)
+        k = self.n // self.mesh.n_data
+        return slice(self.mesh.data_rank * k, (self.mesh.data_rank + 1) * k)
 
     @property
     def writes(self) -> bool:
-        """Whether this rank writes the outputs of its rows: every rank of
-        a split batch, rank 0 alone of a replicated one."""
-        return self.split or self.mesh.rank == 0
+        """Whether this rank writes the outputs of its rows: model rank 0
+        of every data row of a split batch, rank 0 alone of a replicated
+        one."""
+        return (self.split or self.mesh.data_rank == 0) \
+            and self.mesh.model_rank == 0
 
     def __enter__(self):
         self._token = _ACTIVE.set(self)
@@ -190,9 +235,9 @@ class BatchSharding:
 
 
 def dp_sharding(mesh: Mesh, n: int) -> BatchSharding:
-    """The rule of a batch of `n` rows: split over the ranks where `n`
-    divides by the world size, else whole on every rank (replicated)."""
-    return BatchSharding(mesh, n, mesh.world > 1 and n % mesh.world == 0)
+    """The rule of a batch of `n` rows: split over the data rows where `n`
+    divides by their number, else whole on every rank (replicated)."""
+    return BatchSharding(mesh, n, mesh.n_data > 1 and n % mesh.n_data == 0)
 
 
 def shard_batch(tree, sharding: BatchSharding):
@@ -220,49 +265,55 @@ def _sharding() -> Optional[BatchSharding]:
     return s if s is not None and s.split else None
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
+def _host(x: torch.Tensor, group=None) -> torch.Tensor:
     """A copy of `x` that the process group's backend reduces: gloo
     reduces host tensors."""
     x = x.detach()
-    if dist.get_backend() == "gloo" and x.device.type != "cpu":
+    if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
         return x.cpu()
     return x.clone()
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """`x` (a detached count or sum) summed over the ranks that share the
-    batch being computed; `x` itself where the batch is not split."""
-    if _sharding() is None:
+    batch being computed (the data group); `x` itself where the batch is
+    not split."""
+    s = _sharding()
+    if s is None:
         return x
-    t = _host(x)
-    dist.all_reduce(t)
+    t = _host(x, s.mesh.data_group)
+    dist.all_reduce(t, group=s.mesh.data_group)
     return t.to(x.device)
 
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of `x`'s entries over the whole batch (x's rows on every
-    rank): `x.mean()` where the batch is not split."""
+    data row): `x.mean()` where the batch is not split."""
     s = _sharding()
     if s is None:
         return x.mean()
-    return x.sum() / (x.numel() * s.mesh.world)
+    return x.sum() / (x.numel() * s.mesh.n_data)
 
 
 def is_first_share() -> bool:
     """Whether this rank's share of the loss carries the batch's constant
-    terms: rank 0 of a split batch, every rank of a whole one."""
+    terms: the ranks of data row 0 of a split batch, every rank of a whole
+    one."""
     s = _sharding()
-    return s is None or s.mesh.rank == 0
+    return s is None or s.mesh.data_rank == 0
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The rows of `x` from every rank, in rank order (the global batch's
-    row order), detached; `x` itself where the batch is not split."""
-    if _sharding() is None:
+    """The rows of `x` from every data row, in row order (the global
+    batch's row order), detached; `x` itself where the batch is not
+    split."""
+    s = _sharding()
+    if s is None:
         return x
-    t = _host(x)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    group = s.mesh.data_group
+    t = _host(x, group)
+    parts = [torch.empty_like(t) for _ in range(s.mesh.n_data)]
+    dist.all_gather(parts, t, group=group)
     return torch.cat(parts).to(x.device)
 
 

@@ -94,11 +94,18 @@ def test_a_failed_init_raises(no_torchrun, monkeypatch):
     assert S.make_mesh() == S.Mesh()
 
 
-def test_make_mesh_refuses_the_model_axis(no_torchrun):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        S.make_mesh(1, 2)
-    with pytest.raises(ValueError, match="world of 1"):
-        S.make_mesh(2, 1)
+def test_make_mesh_takes_the_model_axis(no_torchrun, twin_ranks):
+    """In a world of one, a mesh of two ranks either way raises; at world
+    2, make_mesh(1, 2) is one data row of two model ranks, rank r model
+    rank r, with the two ranks as its model group and no data group (the
+    data axis is one rank)."""
+    for shape in ((1, 2), (2, 1)):
+        with pytest.raises(ValueError, match="world of 1"):
+            S.make_mesh(*shape)
+    for rank, t in enumerate(twin_ranks):
+        assert t["mesh12_axes"].tolist() == [1, 2, 0, rank]
+        assert t["mesh12_model_group"].tolist() == [0, 1]
+        assert t["mesh12_data_group"].tolist() == [-1]
 
 
 def test_the_split_takes_contiguous_rows_or_replicates():
@@ -225,6 +232,35 @@ def test_sharded_patch_grad_is_batch_sum(twin_ranks):
     for t in twin_ranks:
         np.testing.assert_allclose(t["patch_loss"], float(l0), rtol=1e-6)
     np.testing.assert_allclose(float(one_loss), float(l0), rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def mesh22_ranks(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh22") / "rank{rank}.npz"
+    launch(4, [sys.executable, str(ROOT / "tests" / "torch_parallel_ranks.py"),
+               str(out)])
+    return [dict(np.load(str(out).replace("{rank}", str(r))))
+            for r in range(4)]
+
+
+def test_loss_helpers_reduce_over_the_data_group_only(mesh22_ranks):
+    """On the (2, 2) mesh (rank r: data row r // 2, model rank r % 2) a
+    batch of 4 rows is split over the two data rows: global_sum adds the
+    ranks of one model index (1 + 3 and 2 + 4, not the world's 10),
+    global_mean divides by the 2 data rows' rows, gather_rows collects
+    the data group's rows in row order; the constant terms are data row
+    0's, and model rank 0 of each data row writes its rows."""
+    for rank, t in enumerate(mesh22_ranks):
+        row, m = divmod(rank, 2)
+        assert t["axes"].tolist() == [2, 2, row, m]
+        assert t["model_group"].tolist() == [2 * row, 2 * row + 1]
+        assert t["data_group"].tolist() == [m, m + 2]
+        assert t["sum"].tolist() == [(m + 1) + (m + 3)]
+        assert float(t["mean"]) == rank / 2
+        assert t["gathered"][:, 0].tolist() == [m, m, m + 2, m + 2]
+        assert bool(t["first_share"]) == (row == 0)
+        assert t["rows"].tolist() == [2 * row, 2 * row + 2]
+        assert bool(t["writes"]) == (m == 0)
 
 
 # ----- the CLIs at world size 2 against world size 1 -----

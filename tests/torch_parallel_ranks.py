@@ -1,6 +1,7 @@
 """Rank code of tests/test_torch_parallel.py: the twins of
-tests/test_parallel.py's sharded PGD and patch steps, run as the ranks of
-a gloo launch (`python tests/torch_parallel_ranks.py OUT`, one process per
+tests/test_parallel.py's sharded PGD and patch steps and the (1, 2) mesh
+at world 2, the loss helpers on the (2, 2) mesh at world 4, run as the
+ranks of a gloo launch (`python tests/torch_parallel_ranks.py OUT`, one process per
 rank with the torchrun environment, chip_smoke.launch_ranks). Each rank
 writes its results to OUT with "{rank}" replaced by its rank. Imports no
 JAX: the inputs are seeded numpy arrays that the test feeds to the JAX
@@ -67,10 +68,47 @@ def patch_loss(l, r, total=lambda n: n, clamp=None):
         + (r ** 2).sum()
 
 
+def mesh_record(mesh):
+    """A mesh's axes, this rank's place on them and its groups' ranks
+    (-1 for a group that is the whole world or None)."""
+    import torch.distributed as dist
+    ranks = lambda g: dist.get_process_group_ranks(g) if g is not None \
+        else [-1]
+    return {"axes": [mesh.n_data, mesh.n_model, mesh.data_rank,
+                     mesh.model_rank],
+            "model_group": ranks(mesh.model_group),
+            "data_group": ranks(mesh.data_group)}
+
+
+def data_group_helpers(mesh):
+    """PR 16's loss helpers on a batch of 4 rows split over `mesh`'s data
+    rows: each rank's sum of rank + 1, the mean of (2 rows of) rank, the
+    gathered (2 rows of) rank, its first share, rows and writes."""
+    sharding = S.dp_sharding(mesh, 4)
+    r = float(mesh.rank)
+    with sharding:
+        res = {"sum": S.global_sum(torch.tensor([r + 1])).numpy(),
+               "mean": S.global_mean(torch.full((2, 3), r)).numpy(),
+               "gathered": S.gather_rows(torch.full((2, 1), r)).numpy(),
+               "first_share": np.array(S.is_first_share())}
+    res["rows"] = np.array([sharding.rows.start, sharding.rows.stop])
+    res["writes"] = np.array(sharding.writes)
+    return res
+
+
 def main(out):
     mesh = S.init_process_group("cpu")
+    if mesh.world == 4:
+        # the (2, 2) mesh: the loss helpers over the data group only
+        mesh = S.make_mesh(2, 2)
+        res = {**data_group_helpers(mesh),
+               **{k: np.array(v) for k, v in mesh_record(mesh).items()}}
+        np.savez(out.replace("{rank}", str(mesh.rank)), **res)
+        S.destroy_process_group()
+        return
     assert S.make_mesh(2, 1) == mesh and mesh.world == 2
-    res = {}
+    res = {f"mesh12_{k}": np.array(v)
+           for k, v in mesh_record(S.make_mesh(1, 2)).items()}
     left, right = (torch.from_numpy(a) for a in pgd_inputs())
     sharding = S.dp_sharding(mesh, len(left))
     for name, loss in (("square", square_loss),
