@@ -23,7 +23,8 @@ Phases (any failure ends the run with a non-zero exit):
      channel counts and access widths, ragged and long rows, per-image
      and out-of-range disparities, the unfused warp, misaligned views and
      a non-contiguous gradient; and hold and time K1-K4 at the model
-     axis's per-rank shapes of phase 15 (bf16);
+     axis's per-rank shapes of phase 15 and at the tiny config's shapes
+     of phase 16 (bf16);
   3. run the tiny model in fp32 on the card and on the CPU with the same
      weights and inputs and compare the loss and the input gradients;
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
@@ -192,6 +193,19 @@ Phases (any failure ends the run with a non-zero exit):
      parallel.dryrun at world 4 on the (2, 2) mesh at --scale dryrun;
      `model_axis`: each run's step time, the collectives' bytes and host
      ms a step, peak memory per rank, the ranks' kernels a step.
+  16. the DSGN full story (examples/end_to_end_demo.py): overfit the
+     detector on a synthetic planted-car scene (400 Adam steps), detect,
+     PGD-attack (8 iterations), plan on both detections and
+     collision-check against the true scene: (a) at DSGNConfig.tiny()
+     twice, with the same METRICS bits and trained weights, under
+     tests/test_dsgn_end_to_end.py's conditions (the car found, the clean
+     plan clear, the loss ascends, the attacked plan collides or fails);
+     (b) at DSGNConfig() once: the car found within 3 m, the clean plan
+     clear, the loss ascends (the flip printed); (c) each story launching
+     the kernels at phase 5's counts a training step plus phase 4's a
+     PGD iteration and phase 6's a detection, at shapes phase 2 held (the
+     tiny config's too); `demo`: each story's stage times, losses,
+     detections and metrics.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -5298,6 +5312,119 @@ def model_axis_phase(tmp, card, dev, per, tiny=False):
     return rec
 
 
+# -------------------------------------------------------------- phase 16
+
+# Adam steps of each story's overfit: the JAX script's 400, at both
+# scales; and a story's detections (clean and attacked)
+DEMO_STEPS = 400
+DEMO_DETECTS = 2
+
+
+def demo_story(scale, dev, steps):
+    """One run of the full-story CLI (examples/end_to_end_demo.py's
+    `main`) at `scale`: its METRICS line, the stats `run` fills, the
+    kernel launches the wrappers recorded over it (counts, and
+    (kernel, shape, dtype)) and its wall time. Fails unless it exits 0
+    (the clean detection found the car) with DONE."""
+    from eval_driving_safety_tpu_torch.examples import end_to_end_demo
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    stats = {}
+    buf = io.StringIO()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = end_to_end_demo.main(["--scale", scale, "--steps", str(steps),
+                                   "--device", dev.type], stats=stats)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    lines = [ln[len("METRICS "):] for ln in out.splitlines()
+             if ln.startswith("METRICS ")]
+    check(rc == 0 and len(lines) == 1 and out.splitlines()[-1] == "DONE",
+          f"the {scale} story exited {rc}: {out[-1500:]}")
+    return dict(line=lines[0], metrics=json.loads(lines[0]), stats=stats,
+                launches=dict(_cuda.launches),
+                shapes=set(_cuda.launch_shapes), wall_s=wall, out=out)
+
+
+def story_launches(steps, per_step, per_iter):
+    """Each kernel's launches over a story: `steps` training steps at
+    phase 5's counts a step, the attack's iterations at phase 4's a PGD
+    iteration, and the two detections at phase 6's a predicted pair."""
+    from eval_driving_safety_tpu_torch.examples.end_to_end_demo import \
+        ATTACK
+    iters = ATTACK["num_iters"]
+    return {k: steps * per_step.get(k, 0) + iters * per_iter.get(k, 0)
+            + DEMO_DETECTS * PREDICT_PER_PAIR.get(k, 0) for k in SOURCES}
+
+
+def story_record(run, config):
+    s, m = run["stats"], run["metrics"]
+    return {
+        "config": config, "steps": s["steps"], "losses": s["losses"],
+        "train_ms_per_step": s["train_ms_per_step"],
+        "detect_ms": 1e3 * s["detect_s"],
+        "attacked_detect_ms": 1e3 * s["adv_detect_s"],
+        "pgd_ms_per_iter": s["pgd_ms_per_iter"],
+        "safety_host_ms": 1e3 * s["safety_s"],
+        "clean": s["clean_detection"], "attacked": s["adv_detection"],
+        "attack_losses": s["attack_losses"], "metrics": m,
+        "flipped": m["adv"]["collision"] == 1 or m["adv"]["success"] == 0,
+        "launches": run["launches"], "wall_s": run["wall_s"],
+        "weights_sha256": s["weights_sha256"]}
+
+
+def demo_phase(dev, card, per_step, per_iter, held):
+    """16. The DSGN full story (examples/end_to_end_demo.py): overfit the
+    detector on the synthetic planted-car scene, detect, PGD-attack,
+    plan and collision-check. (a) The tiny story (DSGNConfig.tiny(),
+    bf16) twice: the same METRICS line and trained weights' digest, and
+    tests/test_dsgn_end_to_end.py's conditions (clean score >= 0.5 and
+    error < 3 m, clean plan found without collision, the attack's loss
+    ascends, the attacked plan collides or is not found). (b) The train
+    story (DSGNConfig(), the trainer's config) once: the car found within
+    3 m, the clean plan found without collision, the loss ascends; the
+    flip is printed, not gated. (c) Each story's launches equal
+    `story_launches` (phase 5's a training step, phase 4's a PGD
+    iteration, phase 6's a detection) at shapes phase 2 held, in bf16.
+    Prints the `demo` line (stage times, losses, detections, metrics).
+    Returns each story's launches."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, scale in (("tiny", "tiny"), ("tiny_rerun", "tiny"),
+                        ("train", "train")):
+        run = demo_story(scale, dev, DEMO_STEPS)
+        want = story_launches(DEMO_STEPS, per_step, per_iter)
+        check(run["launches"] == want,
+              f"the {name} story launched {run['launches']}, not {want}")
+        unheld = {sh for sh in run["shapes"] if sh not in held}
+        check(not unheld, f"the {name} story launched at shapes phase 2 "
+              f"did not hold: {sorted(unheld)}")
+        runs[name] = run
+        log(run["out"].rstrip())
+    a, b = runs["tiny"], runs["tiny_rerun"]
+    check(a["line"] == b["line"] and a["stats"]["weights_sha256"]
+          == b["stats"]["weights_sha256"],
+          f"two tiny stories differ: {a['line']} / {b['line']}, weights "
+          f"{a['stats']['weights_sha256']} / {b['stats']['weights_sha256']}")
+    m = a["metrics"]
+    check(m["clean_score"] >= 0.5 and m["clean_err"] < 3.0
+          and m["clean"] == {"success": 1, "collision": 0}
+          and m["attack_ascent"] > 0.0
+          and (m["adv"]["collision"] == 1 or m["adv"]["success"] == 0),
+          f"the tiny story: {m}")
+    m = runs["train"]["metrics"]
+    check(m["clean_err"] < 3.0
+          and m["clean"] == {"success": 1, "collision": 0}
+          and m["attack_ascent"] > 0.0, f"the train story: {m}")
+    log(json.dumps({"demo": {
+        "tiny": story_record(a, "DSGNConfig.tiny()"),
+        "tiny_rerun": {"wall_s": b["wall_s"], "same_metrics_bits": True,
+                       "same_weights": True},
+        "train": story_record(runs["train"], "DSGNConfig()"),
+        "phase_s": time.perf_counter() - t0, "card": card}}))
+    return {name: run["launches"] for name, run in runs.items()}
+
+
 def launch_counts(launch_shapes):
     """{(kernel, shape): launches} of a rank's recorded launch shapes."""
     counts = {}
@@ -5360,6 +5487,11 @@ def main():
     # ... and at the model axis's per-rank shapes (phase 15)
     per_ranks = {}
     model_axis_kernels(full, dev, per_ranks)
+    # ... and at the tiny config's, which phase 16's tiny story launches
+    per_tiny = {}
+    tiny = DSGNConfig.tiny()
+    check_psv(tiny, tiny.dtype, dev, per_tiny)
+    check_depthconv(tiny, tiny.dtype, dev, per_tiny, per_tiny)
     torch.cuda.empty_cache()
     lap("2_kernels")
 
@@ -5475,6 +5607,19 @@ def main():
                 bound_by=bound(r, cfg_t.dtype)[1])
         for k, r in rec_t.items()}}))
 
+    # 16. the DSGN full story: overfit, detect, attack, plan and collide,
+    # at the tiny config and the trainer's, launching each kernel at
+    # phase 5's counts a training step, phase 4's a PGD iteration and
+    # phase 6's a detection
+    per_step, per_iter = {}, {}
+    for into, by_shape in ((per_step, t_counts), (per_iter, counts)):
+        for (k, _), n in by_shape.items():
+            into[k] = into.get(k, 0) + n
+    demo = demo_phase(dev, card, per_step, per_iter,
+                      set(per) | set(timed_t) | set(per_tiny))
+    torch.cuda.empty_cache()
+    lap("16_demo")
+
     # times, bytes and operations per attack iteration (the four kernels
     # of the attack path) or per training step (the weight gradient, which
     # only training launches): each shape's time times its launches per
@@ -5538,6 +5683,10 @@ def main():
                 r[name] for r in model_axis["dsgn"]["rank_launches"]],
             "model_axis_compat_rank_launches_per_pgd_step": [
                 r[name] for r in model_axis["compat"]["rank_launches"]],
+            # phase 16: the full story at the tiny config (400 training
+            # steps, 8 PGD iterations, 2 detections) and at DSGNConfig()
+            "demo_tiny_story_launches": demo["tiny"][name],
+            "demo_train_story_launches": demo["train"][name],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
