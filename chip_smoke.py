@@ -206,6 +206,19 @@ Phases (any failure ends the run with a non-zero exit):
      PGD iteration and phase 6's a detection, at shapes phase 2 held (the
      tiny config's too); `demo`: each story's stage times, losses,
      detections and metrics.
+  17. the Stereo R-CNN full story (examples/srcnn_end_to_end.py), fp32
+     with TF32 off, launching no port kernel: (a) at
+     StereoRCNNConfig.tiny() on the driver's schedule (probes from step
+     1,250 every 250, up to 2,500), held to
+     tests/test_srcnn_end_to_end.py's five conditions (clean score >=
+     0.5, IoU > 0.3, the attack's loss up by 10, within eps, the attacked
+     score down by 0.1); (b) its first 100 steps again: the losses and
+     the weights' SHA-256 the same bits; (c) at StereoRCNNConfig()
+     capped at 250 steps, probed at the cap and attacked: finite losses,
+     the loss below step 0's, the attack ascending within eps (the probe
+     and both scores printed); (d) the launch counts unchanged;
+     `srcnn_demo`: each story's losses at its logged steps and probes,
+     stage ms, peak memory and outcome.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -5425,6 +5438,120 @@ def demo_phase(dev, card, per_step, per_iter, held):
     return {name: run["launches"] for name, run in runs.items()}
 
 
+# -------------------------------------------------------------- phase 17
+
+# the Stereo R-CNN story: the driver's schedule at the tiny config (up to
+# step index 2,500, probes from 1,250 every 250), the determinism rerun's
+# steps, and the full-width story's cap. A full-width fp32 step takes
+# about 353 ms on the H100 (a probe about 146 ms, a PGD iteration about
+# 265 ms): 250 steps keep phase 17 near 250 s with the tiny story's ~130.
+SRCNN_DEMO_STEPS = 2500
+SRCNN_RERUN_STEPS = 100
+SRCNN_DEMO_CAP = 250
+
+
+def srcnn_demo_phase(dev, card, steps=SRCNN_DEMO_STEPS,
+                     rerun=SRCNN_RERUN_STEPS, cap=SRCNN_DEMO_CAP,
+                     capped_scale="train"):
+    """17. The Stereo R-CNN full story (examples/srcnn_end_to_end.py),
+    fp32 with TF32 off: (a) the tiny story (StereoRCNNConfig.tiny()) on
+    the driver's schedule, held to tests/test_srcnn_end_to_end.py's five
+    conditions (clean score >= 0.5, clean IoU > 0.3, the attack's last
+    loss above its first by 10, every pixel within eps, the attacked
+    score below the clean one by 0.1); (b) its first `rerun` steps again
+    from a fresh model: every step's loss and the weights' SHA-256 after
+    them the same bits; (c) StereoRCNNConfig() on the same recipe, capped
+    at `cap` steps, probed at the cap, then attacked: finite losses, the
+    loss at the cap below step 0's, the attack ascending within eps (the
+    car found or not, its IoU and both scores printed); (d) no port
+    kernel launched over the phase. Prints the `srcnn_demo` line and
+    returns the phase's launches."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.examples import srcnn_end_to_end as S
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    eps = S.ATTACK["eps"]
+    _cuda.reset_launches()
+
+    # (a) the tiny story, uncut
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    a = S.run("tiny", steps=steps, device=dev.type, stats=st,
+              digest_after=rerun, log=log)
+    log(json.dumps(a))
+    tiny = {**a, "logged_losses": st["logged"], "probes": st["probes"],
+            "var_min": st["var_min"], "finite": st["finite"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    check(a["ok"] and a["clean_score"] >= 0.5 and a["clean_iou"] > 0.3
+          and a["attack_losses"][-1] > a["attack_losses"][0] + 10.0
+          and a["max_delta"] <= eps + 1e-3
+          and a["adv_score"] < a["clean_score"] - 0.1,
+          f"the tiny Stereo R-CNN story: {a}")
+
+    # (b) its first steps again
+    t1 = time.perf_counter()
+    scene, model, uncert = S.setup("tiny", 0, dev)
+    again = S.overfit(model, uncert, scene, rerun, probe_from=rerun,
+                      digest_after=rerun, log=lambda m: None)
+    same_losses = np.array_equal(again["losses"], st["losses"][:rerun])
+    check(same_losses and again["sha256"] == st["sha256"],
+          f"the tiny story's first {rerun} steps differ: losses equal "
+          f"{same_losses}, weights {again['sha256']} / {st['sha256']}")
+    del scene, model, uncert
+    rerun_rec = {"steps": rerun, "same_losses_bits": True,
+                 "same_weights": True, "sha256": st["sha256"],
+                 "wall_s": time.perf_counter() - t1}
+
+    # (c) full width, capped
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    scene, model, uncert = S.setup(capped_scale, 0, dev)
+    tr = S.overfit(model, uncert, scene, cap, probe_from=cap, log=log)
+    losses = tr["losses"]
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    found = S.hits(S.detections(model, scene, scene.left, scene.right),
+                   scene.box)
+    probe_ms = 1e3 * (time.perf_counter() - tp)
+    best = max(found, key=lambda d: d["score"]) if found else None
+    adv = S.attacked(model, uncert, scene)
+    var = float(S.frozen_var(model).min())
+    capped = {
+        "config": "StereoRCNNConfig()" if capped_scale == "train"
+        else capped_scale, "cap": cap, "box": scene.box.tolist(),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "logged_losses": tr["logged"], "found": best is not None,
+        "clean_score": float(best["score"]) if best else 0.0,
+        "clean_iou": float(S.iou(best["bbox"], scene.box)) if best else 0.0,
+        "attack_losses": adv["attack_losses"],
+        "max_delta": adv["max_delta"], "adv_score": adv["adv_score"],
+        "train_ms_per_step": 1e3 * tr["train_s"] / cap, "probe_ms": probe_ms,
+        "pgd_ms_per_iter": 1e3 * adv["attack_s"] / S.ATTACK["num_iters"],
+        "var_min": var, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wall_s": time.perf_counter() - t1}
+    del scene, model, uncert
+    torch.cuda.empty_cache()
+    log(f"full width, {cap} steps: the car found {capped['found']}, IoU "
+        f"{capped['clean_iou']:.3f}, score {capped['clean_score']:.3f} -> "
+        f"attacked {capped['adv_score']:.3f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0]
+          and adv["attack_losses"][-1] > adv["attack_losses"][0]
+          and adv["max_delta"] <= eps + 1e-3,
+          f"the capped full-width story: {capped}")
+
+    # (d) no port kernel
+    launches = dict(_cuda.launches)
+    check(not any(launches.values()),
+          f"the Stereo R-CNN story launched port kernels: {launches}")
+    log(json.dumps({"srcnn_demo": {
+        "tiny": tiny, "tiny_rerun": rerun_rec, "capped": capped,
+        "launches": launches, "phase_s": time.perf_counter() - t0,
+        "card": card}}))
+    return launches
+
+
 def launch_counts(launch_shapes):
     """{(kernel, shape): launches} of a rank's recorded launch shapes."""
     counts = {}
@@ -5620,6 +5747,12 @@ def main():
     torch.cuda.empty_cache()
     lap("16_demo")
 
+    # 17. the Stereo R-CNN full story: overfit, detect, attack, at the
+    # tiny config uncut and at StereoRCNNConfig() capped; no port kernel
+    srcnn_demo = srcnn_demo_phase(dev, card)
+    torch.cuda.empty_cache()
+    lap("17_srcnn_demo")
+
     # times, bytes and operations per attack iteration (the four kernels
     # of the attack path) or per training step (the weight gradient, which
     # only training launches): each shape's time times its launches per
@@ -5687,6 +5820,8 @@ def main():
             # steps, 8 PGD iterations, 2 detections) and at DSGNConfig()
             "demo_tiny_story_launches": demo["tiny"][name],
             "demo_train_story_launches": demo["train"][name],
+            # phase 17: the Stereo R-CNN story launches none of them
+            "srcnn_demo_launches": srcnn_demo[name],
             # K1, K2: the access widths (bytes) the sweep launched
             **({"vector_bytes": sorted(wd for k, wd in widths if k == name)}
                if name.startswith("psv") else {}),
