@@ -192,7 +192,8 @@ Phases (any failure ends the run with a non-zero exit):
      launching K1 and K2 once a step and nothing else of the port; (c)
      parallel.dryrun at world 4 on the (2, 2) mesh at --scale dryrun;
      `model_axis`: each run's step time, the collectives' bytes and host
-     ms a step, peak memory per rank, the ranks' kernels a step.
+     ms a step, peak memory per rank, the ranks' kernels a step, and
+     phase 18 (e)'s remat step.
   16. the DSGN full story (examples/end_to_end_demo.py): overfit the
      detector on a synthetic planted-car scene (400 Adam steps), detect,
      PGD-attack (8 iterations), plan on both detections and
@@ -219,6 +220,29 @@ Phases (any failure ends the run with a non-zero exit):
      and both scores printed); (d) the launch counts unchanged;
      `srcnn_demo`: each story's losses at its logged steps and probes,
      stage ms, peak memory and outcome.
+  18. the CLIs' options no earlier phase sets, over phase 4's frames at
+     --scale paper (run after phase 15, in its directory): (a) the attack
+     CLI with --remat (3 iterations) writing the PNG bytes and losses of
+     a run without it, launching K1 1, K2 1, K3 13 (the hourglass's five
+     stride-1 blocks again in the backward pass) and K4 dx 8 an
+     iteration at phase 2's shapes; (b) the patch CLI with --remat, 1
+     epoch of 2 steps: patch.npy's bytes; (c) the attack CLI on phase
+     7's .tar with --remat: the same bytes, K1 and K2 once an iteration;
+     (d) predict with --remat under inference mode: the same txts and
+     launches, no new warning; (e) in phase 15, one PGD step with remat
+     on each model of the model axis: every rank's loss and image
+     gradients bit for bit those without it, K3 8 + 5 at the rank's
+     shapes, the halo exchanges counted; (f) --objective depth_divergence
+     and depth_shift (--depth_shift_m 5) with make_depth_gt's maps, each
+     twice: losses finite and ascending, nonzero signs, the same bytes,
+     K1 1, K2 1, K3 8, K4 dx 5 an iteration (nothing of the 3DGV/BEV
+     branch reaches the loss); without --depth_dir every iteration writes
+     the clean frames; the tiny fp32 first step under each on the card
+     and on the CPU; (g) one iteration under --debug_nans with (a)'s
+     bytes; `remat_steady_state`: the steady-state iteration without and
+     with remat, in turns (ms, kernel ms, busy share, peak memory);
+     `options`: each run's seconds, losses and launches, the iteration
+     under anomaly mode, the phase's seconds.
 Each phase's seconds are printed (`phase_s`). The line before the last
 is the kernels' JSON record (the four kernels
 of the attack per attack iteration, the weight gradient per training
@@ -2194,18 +2218,38 @@ def png_dir_bytes(root):
     return out
 
 
-@contextlib.contextmanager
-def recorded_signs():
-    """Record a digest of every packed sign trajectory the Stereo R-CNN
-    CLI's replay fetches (data.dataset.fetch_packed_signs)."""
+def sign_digest(fetched):
+    """SHA-256 of a fetched packed sign trajectory pair (pl, pr, bits)."""
     import hashlib
+    return hashlib.sha256(fetched[0].tobytes() + fetched[1].tobytes()
+                          ).hexdigest()
+
+
+def nonzero_signs(fetched):
+    """(nonzero, all) gradient signs of a fetched packed trajectory pair
+    (pl, pr, bits): 1-bit planes hold no zero sign (no zero plane was
+    needed), 2-bit codes are unpacked and counted."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.attack.pgd import unpack_signs
+    pl, pr, bits = fetched
+    if bits == 1:
+        n = 8 * (pl.size + pr.size)
+        return n, n
+    s = [unpack_signs(p) for p in (pl, pr)]
+    return (sum(int(np.count_nonzero(x)) for x in s),
+            sum(x.size for x in s))
+
+
+@contextlib.contextmanager
+def recorded_signs(summary=sign_digest):
+    """Record `summary` of every packed sign trajectory a sweep's replay
+    fetches (data.dataset.fetch_packed_signs, both detectors' CLIs)."""
     from eval_driving_safety_tpu_torch.data import dataset as D
     orig, seen = D.fetch_packed_signs, []
 
     def fetch(pl, pr):
         res = orig(pl, pr)
-        seen.append(hashlib.sha256(res[0].tobytes() + res[1].tobytes()
-                                   ).hexdigest())
+        seen.append(summary(res))
         return res
     D.fetch_packed_signs = fetch
     try:
@@ -4996,16 +5040,19 @@ def model_axis_run(out, data, depth_dir, tiny=False):
     """`python3 chip_smoke.py --model-axis OUT DATA DEPTH_DIR [tiny]`: one
     process, or one rank of a launch (mesh (1, world): the world splits
     the planes), runs on the first frame of DATA (depth ground truth from
-    DEPTH_DIR) one PGD step, then one patch step, of the fast DSGN at
-    DSGNConfig.full() (seed 0) and of the compat model at the upstream
-    default arch (random_compat_weights), bf16, on the card (the CPU and
-    the tiny config and arch with `tiny`), each with the launch counts
-    set to 0 just before it and read just after; then times the PGD step
+    DEPTH_DIR) one PGD step, the same step with remat (cfg.remat: the
+    hourglass recomputed in the backward pass, its loss and image
+    gradients compared bit for bit with the first's), then one patch
+    step, of the fast DSGN at DSGNConfig.full() (seed 0) and of the
+    compat model at the upstream default arch (random_compat_weights),
+    bf16, on the card (the CPU and the tiny config and arch with `tiny`),
+    each with the launch counts and the collectives' traffic set to 0
+    just before it and read just after; then times the PGD step
     (median of MODEL_AXIS_TIMED after 2 warm-ups) and reads the peak
     memory. Writes OUT.npz (the losses, every depth map, both images'
     gradient signs, the new patch) and OUT.json (launches, shapes, the
-    collectives' traffic in one PGD step, times, memory), "{rank}" in OUT
-    replaced by the rank."""
+    collectives' traffic and the peak memory of each PGD step, times,
+    memory), "{rank}" in OUT replaced by the rank."""
     import dataclasses
 
     import numpy as np
@@ -5070,26 +5117,51 @@ def model_axis_run(out, data, depth_dir, tiny=False):
             vl, vr = (c.clone().requires_grad_(True) for c in clean)
             loss = loss_of(vl, vr)
             return (loss.detach(), *torch.autograd.grad(loss, (vl, vr)))
+
+        def counted_pgd_step():
+            """One PGD step with the launch counts and the collectives'
+            traffic set to 0 just before it: its results, launches,
+            shapes, traffic and peak memory."""
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_launches()
+            V.reset_traffic()
+            res = pgd_step()
+            sync()
+            return res, {
+                "pgd_launches": dict(_cuda.launches),
+                "pgd_launch_shapes": [[k, list(sh), str(dt), n] for (
+                    k, sh, dt), n in _cuda.launch_shapes.items()],
+                "traffic": {k: dict(v) for k, v in V.traffic.items()},
+                "pgd_peak_mem_GiB": (torch.cuda.max_memory_allocated(dev)
+                                     / 2 ** 30 if dev.type == "cuda"
+                                     else None)}
         r = rec[kind] = {"score_abs_max": []}
         hooks = [m.register_forward_hook(
             lambda m, a, y: r["score_abs_max"].append(float(
                 y.detach().abs().max()))) for m in model.modules()
             if type(m).__name__ == "Score3D"]
-        _cuda.reset_launches()
-        V.reset_traffic()
-        loss, gl, gr = pgd_step()
-        sync()
+        (loss, gl, gr), counted = counted_pgd_step()
         for h in hooks:
             h.remove()
-        r["pgd_launches"] = dict(_cuda.launches)
-        r["pgd_launch_shapes"] = [[k, list(sh), str(dt), n] for (
-            k, sh, dt), n in _cuda.launch_shapes.items()]
-        r["traffic"] = {k: dict(v) for k, v in V.traffic.items()}
+        r.update(counted)
         arrays[kind + "_loss"] = loss.float().cpu().numpy()
         for i, dp in enumerate(outs[-1]["depth_preds"]):
             arrays[f"{kind}_depth{i}"] = dp.detach().float().cpu().numpy()
         arrays[kind + "_sign_l"], arrays[kind + "_sign_r"] = (
             torch.sign(x).to(torch.int8).cpu().numpy() for x in (gl, gr))
+        del outs[:]
+        # the same step with the hourglass recomputed in the backward pass
+        # (cfg.remat, the CLIs' --remat): the loss and both image
+        # gradients the same bits, the hourglass's K3 and halo exchanges
+        # run again inside the backward
+        model.cfg = dataclasses.replace(cfg, remat=True)
+        (rloss, rgl, rgr), r["remat"] = counted_pgd_step()
+        model.cfg = cfg
+        r["remat"]["same_bits"] = {
+            "loss": torch.equal(rloss, loss), "grad_l": torch.equal(rgl, gl),
+            "grad_r": torch.equal(rgr, gr)}
+        del rloss, rgl, rgr, outs[:]
         _, radius, patch = init_patch(cfg.height, 0.2)
         centers = sample_patch_centers(
             torch.Generator().manual_seed(1), 1, cfg.height, cfg.width,
@@ -5261,6 +5333,25 @@ def model_axis_phase(tmp, card, dev, per, tiny=False):
                      and shapes == want,
                      f"model axis {kind} rank {r}: launches {pgd}, "
                      f"{patch}, shapes {sorted(shapes)} != {sorted(want)}")
+                # with remat the hourglass's five stride-1 blocks run K3
+                # again inside the backward, at the rank's shapes
+                rm = jr["remat"]
+                rshapes = {(k, tuple(sh)) for k, sh, _, _ in
+                           rm["pgd_launch_shapes"]}
+                gate(launches_are(rm["pgd_launches"], REMAT_PER_ITER[kind],
+                                  1) and rshapes == want,
+                     f"model axis {kind} rank {r} with remat: launches "
+                     f"{rm['pgd_launches']} != {REMAT_PER_ITER[kind]}, "
+                     f"shapes {sorted(rshapes)} != {sorted(want)}")
+        same = {"one_process": [one[1][kind]["remat"]["same_bits"]],
+                "two_ranks": [jr["remat"]["same_bits"] for jr in ranks]}
+        gate(all(all(b.values()) for v in same.values() for b in v),
+             f"model axis {kind}: a remat step's loss or image gradients "
+             f"differ from the step without remat: {same}")
+
+        def halos(jr):
+            return {d: {m: jr["traffic"].get(f"halo_exchange.{d}", {}).get(
+                m, 0) for m in ("calls", "bytes")} for d in ("fwd", "bwd")}
         rec[kind] = {
             "loss_one_process": float(w1[kind + "_loss"]),
             "loss_rel_diff": loss_rel, "depth_rel_err": depth_err,
@@ -5281,7 +5372,21 @@ def model_axis_phase(tmp, card, dev, per, tiny=False):
             "peak_mem_GiB_per_rank": [jr["peak_mem_GiB"] for jr in ranks],
             "traffic_per_pgd_step": [jr["traffic"] for jr in ranks],
             "rank_launches": [jr["pgd_launches"] for jr in ranks],
-            "rank_patch_launches": [jr["patch_launches"] for jr in ranks]}
+            "rank_patch_launches": [jr["patch_launches"] for jr in ranks],
+            "remat": {
+                "same_bits": same,
+                "rank_launches": [jr["remat"]["pgd_launches"]
+                                  for jr in ranks],
+                "halo_per_pgd_step_per_rank": {
+                    "no_remat": [halos(jr) for jr in ranks],
+                    "remat": [halos(jr["remat"]) for jr in ranks]},
+                "pgd_peak_mem_GiB_per_rank": {
+                    "no_remat": [jr["pgd_peak_mem_GiB"] for jr in ranks],
+                    "remat": [jr["remat"]["pgd_peak_mem_GiB"]
+                              for jr in ranks]},
+                "pgd_peak_mem_GiB_one_process": {
+                    "no_remat": one[1][kind]["pgd_peak_mem_GiB"],
+                    "remat": one[1][kind]["remat"]["pgd_peak_mem_GiB"]}}}
     # a rank's kernels a PGD step: phase 2's times at the rank's shapes
     if not tiny:
         counts = launch_counts(j0["dsgn"]["pgd_launch_shapes"])
@@ -5552,6 +5657,375 @@ def srcnn_demo_phase(dev, card, steps=SRCNN_DEMO_STEPS,
     return launches
 
 
+# -------------------------------------------------------------- phase 18
+
+# a PGD iteration launches what a patch step does; with remat the fast
+# DSGN's hourglass runs its five stride-1 blocks' K3 (0, 2, 4, 5, 6)
+# again inside the backward pass, while the compat model's hourglass is
+# library convs (K1 and K2 only, remat or not); under a depth objective
+# no output of the 3DGV/BEV branch reaches the loss: its three K3 run
+# forward, no K4 dx
+ATTACK_PER_ITER = PATCH_PER_STEP
+REMAT_PER_ITER = {"dsgn": dict(ATTACK_PER_ITER, depth_tap_conv_fwd=13),
+                  "compat": COMPAT_PER_ITER}
+DEPTH_OBJECTIVE_PER_ITER = dict(ATTACK_PER_ITER, depth_tap_conv_bwd=5)
+OPTION_ITERS = 3
+DEPTH_SHIFT_M = 5.0
+
+
+def option_sweep(tmp, dev, name, *flags, iters=OPTION_ITERS,
+                 scale="paper"):
+    """The attack CLI at --scale paper over phase 4's frames into
+    tmp/options/NAME with `flags`, the launch counts set to 0 just
+    before it: its directory, seconds, losses, launches, launch shapes
+    and nonzero signs."""
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    out = os.path.join(tmp, "options", name)
+    _cuda.reset_launches()
+    with recorded_signs(nonzero_signs) as signs:
+        t, losses, _ = run_cli([
+            "--data_path", os.path.join(tmp, "kitti"), "--detector", "dsgn",
+            "--scale", scale, "--iter", str(iters), "--batch", "1",
+            "--device", str(dev), "--out_prefix",
+            os.path.join(out, "dsgn_pgd"), *flags])
+    return {"dir": out, "run_s": t, "losses": losses,
+            "launches": dict(_cuda.launches),
+            "shapes": {(k, s) for k, s, _ in _cuda.launch_shapes},
+            "dtypes": {dt for _, _, dt in _cuda.launch_shapes},
+            "signs": signs, "iters": iters}
+
+
+def sweep_launches_ok(run, per, phase2):
+    """A sweep over phase 4's two frames launched `per` an iteration, at
+    shapes phase 2 held, in bf16."""
+    return launches_are(run["launches"], per, 2 * run["iters"]) and \
+        run["shapes"] <= phase2 and run["dtypes"] <= {"bfloat16"}
+
+
+def iteration_files(run, k):
+    """{path: bytes} of a sweep's iteration k."""
+    return png_dir_bytes(os.path.join(run["dir"], f"dsgn_pgd_iters_{k}"))
+
+
+def remat_sweeps(tmp, dev, phase2, scale="paper"):
+    """(a) The attack CLI at --scale paper over phase 4's frames with and
+    without --remat: the same PNG bytes and losses; the launches an
+    iteration REMAT_PER_ITER["dsgn"] and ATTACK_PER_ITER at shapes phase
+    2 held."""
+    plain = option_sweep(tmp, dev, "plain", scale=scale)
+    remat = option_sweep(tmp, dev, "remat", "--remat", scale=scale)
+    files = png_dir_bytes(plain["dir"])
+    check(len(files) == 2 * 2 * (OPTION_ITERS + 1)
+          and png_dir_bytes(remat["dir"]) == files
+          and remat["losses"] == plain["losses"],
+          f"--remat sweep: {len(files)} files, losses {remat['losses']} vs "
+          f"{plain['losses']}, or its PNGs differ from the sweep without it")
+    check(sweep_launches_ok(plain, ATTACK_PER_ITER, phase2),
+          f"sweep without --remat: launches {plain['launches']}")
+    check(sweep_launches_ok(remat, REMAT_PER_ITER["dsgn"], phase2),
+          f"--remat sweep: launches {remat['launches']} in "
+          f"{2 * OPTION_ITERS} iterations, expected "
+          f"{REMAT_PER_ITER['dsgn']} an iteration at phase 2's shapes")
+    return plain, remat
+
+
+def remat_patch(tmp, dev, scale="paper"):
+    """(b) The patch CLI at --scale paper, 1 epoch of 2 steps (phase 4's
+    two frames, 1 step each) from the same epoch0, with and without
+    --remat: the same patch.npy bytes; REMAT_PER_ITER["dsgn"] a step."""
+    import shutil
+    from eval_driving_safety_tpu_torch.cli.patch_attack import \
+        main as patch_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    common = ["--data_path", os.path.join(tmp, "kitti"), "--detector", "dsgn",
+              "--scale", scale, "--device", str(dev), "--epochs", "1",
+              "--iters", "1"]
+    a, b = (os.path.join(tmp, "options", f"patch_{n}")
+            for n in ("plain", "remat"))
+    t_a, _, _ = run_cli(common + ["--save_dir", a], patch_main)
+    shutil.copytree(os.path.join(a, "epoch0"), os.path.join(b, "epoch0"))
+    _cuda.reset_launches()
+    t_b, _, _ = run_cli(common + ["--save_dir", b, "--remat"], patch_main)
+    launches = dict(_cuda.launches)
+    rel = os.path.join("epoch1", "patch.npy")
+    with open(os.path.join(a, rel), "rb") as fa, \
+            open(os.path.join(b, rel), "rb") as fb:
+        check(fa.read() == fb.read(), "--remat patch: epoch1/patch.npy "
+              "differs from the run without it")
+    check(launches_are(launches, REMAT_PER_ITER["dsgn"], 2),
+          f"--remat patch launches {launches} in 2 steps")
+    return {"run_s": t_a, "remat_run_s": t_b, "steps": 2,
+            "remat_launches": launches}
+
+
+def remat_compat(tmp, dev, scale="paper"):
+    """(c) The attack CLI on phase 7's random published-layout .tar (the
+    upstream default arch), 1 frame, 2 iterations, with and without
+    --remat: the same bytes; K1 and K2 once an iteration, nothing else."""
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import \
+        DSGNCompatArch
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    tar = os.path.join(tmp, "finetune_53.tar")
+    if not os.path.exists(tar):
+        write_compat_tar(tar, scale_cfg(scale), DSGNCompatArch())
+    runs = {}
+    for name, flags in (("plain", []), ("remat", ["--remat"])):
+        out = os.path.join(tmp, "options", f"compat_{name}")
+        _cuda.reset_launches()
+        t, losses, _ = run_cli([
+            "--data_path", os.path.join(tmp, "kitti"), "--detector", "dsgn",
+            "--scale", scale, "--device", str(dev), "--ckpt", tar,
+            "--iter", "2", "--debug", "--debugnum", "1",
+            "--out_prefix", os.path.join(out, "dsgn_pgd"), *flags])
+        runs[name] = {"run_s": t, "losses": losses,
+                      "launches": dict(_cuda.launches),
+                      "files": png_dir_bytes(out)}
+        check(launches_are(runs[name]["launches"], REMAT_PER_ITER["compat"],
+                           2), f"compat {name} launches "
+              f"{runs[name]['launches']}")
+    check(len(runs["plain"]["files"]) == 2 * 3
+          and runs["remat"]["files"] == runs["plain"]["files"]
+          and runs["remat"]["losses"] == runs["plain"]["losses"],
+          "compat --remat: its bytes or losses differ from the run without "
+          "it")
+    return {k: {m: v[m] for m in ("run_s", "losses", "launches")}
+            for k, v in runs.items()}
+
+
+def remat_predict(tmp, dev, scale="paper"):
+    """(d) The predict CLI at --scale paper on phase 6's raised-bias
+    weights over phase 4's frames, with and without --remat: under
+    inference mode the checkpoint is idle, so the same txt bytes, the
+    same launches (K1 once, K3 8 times a pair) and no warning the run
+    without it does not give."""
+    import warnings
+    from eval_driving_safety_tpu_torch.cli.predict_and_save import \
+        main as predict_main
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    ckpt = os.path.join(tmp, "raised_bias.pt")
+    if not os.path.exists(ckpt):
+        raised_bias_weights(scale_cfg(scale), ckpt)
+    runs = {}
+    for name, flags in (("plain", []), ("remat", ["--remat"])):
+        res = os.path.join(tmp, "options", f"pred_{name}")
+        _cuda.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t, _, _ = run_cli([
+                "--data_path", os.path.join(tmp, "kitti"), "--detector",
+                "dsgn", "--scale", scale, "--device", str(dev), "--ckpt",
+                ckpt, "--result_dir", res, *flags], predict_main)
+        runs[name] = {"run_s": t, "launches": dict(_cuda.launches),
+                      "warnings": sorted({f"{w.category.__name__}: "
+                                          f"{w.message}" for w in caught}),
+                      "txts": png_dir_bytes(os.path.join(res, "data"))}
+    plain, remat = runs["plain"], runs["remat"]
+    check(len(plain["txts"]) == 2 and remat["txts"] == plain["txts"]
+          and any(plain["txts"].values()),
+          "predict --remat: its txts differ from the run without it")
+    check(predict_launches_ok(remat["launches"], 2)
+          and remat["launches"] == plain["launches"],
+          f"predict --remat launches {remat['launches']}")
+    check(remat["warnings"] == plain["warnings"],
+          f"predict --remat warned: {remat['warnings']} (without it: "
+          f"{plain['warnings']})")
+    return {k: {m: v[m] for m in ("run_s", "launches", "warnings")}
+            for k, v in runs.items()}
+
+
+def depth_objective_sweeps(tmp, dev, phase2, scale="paper"):
+    """(f) The attack CLI at --scale paper over phase 4's frames with
+    make_depth_gt's maps for them (phase 5's scans, so phase 5's maps),
+    under --objective depth_divergence and depth_shift --depth_shift_m 5,
+    each twice: every loss finite and the last above the first, nonzero
+    signs, the rerun's bytes, DEPTH_OBJECTIVE_PER_ITER an iteration at
+    shapes phase 2 held; then depth_divergence without --depth_dir: every
+    iteration's frames the clean ones."""
+    import numpy as np
+    from eval_driving_safety_tpu_torch.cli import make_depth_gt
+    data = os.path.join(tmp, "kitti")
+    depth = os.path.join(tmp, "options", "depth_gt")
+    ids = ["000001", "000002"]
+    write_velodyne(data, ids)
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_depth_gt.main(["--data_path", data, "--out_dir", depth])
+    returns = [int((np.load(os.path.join(depth, f + ".npy")) > 0).sum())
+               for f in ids]
+    check(all(r > 1000 for r in returns), f"depth gt returns {returns}")
+    rec = {"depth_gt_returns": returns}
+    for objective, flags in (
+            ("depth_divergence", []),
+            ("depth_shift", ["--depth_shift_m", str(DEPTH_SHIFT_M)])):
+        runs = [option_sweep(tmp, dev, f"{objective}_{i}", "--objective",
+                             objective, "--depth_dir", depth, *flags,
+                             scale=scale)
+                for i in range(2)]
+        for run in runs:
+            check(len(run["losses"]) == 2 and all(
+                len(l) == OPTION_ITERS and all(map(math.isfinite, l))
+                and l[-1] > l[0] for l in run["losses"]),
+                f"{objective}: losses {run['losses']}, not finite and "
+                "ascending")
+            check(len(run["signs"]) == 2 and all(n > 0 for n, _ in
+                                                 run["signs"]),
+                  f"{objective}: nonzero signs {run['signs']}")
+            check(sweep_launches_ok(run, DEPTH_OBJECTIVE_PER_ITER, phase2),
+                  f"{objective}: launches {run['launches']} in "
+                  f"{2 * OPTION_ITERS} iterations, expected "
+                  f"{DEPTH_OBJECTIVE_PER_ITER} an iteration")
+        check(png_dir_bytes(runs[0]["dir"]) == png_dir_bytes(runs[1]["dir"]),
+              f"{objective}: a rerun wrote other bytes")
+        rec[objective] = {
+            "run_s": [r["run_s"] for r in runs], "losses": runs[0]["losses"],
+            "nonzero_signs": runs[0]["signs"],
+            "launches": runs[0]["launches"]}
+    bare = option_sweep(tmp, dev, "no_depth_dir", "--objective",
+                        "depth_divergence", iters=2, scale=scale)
+    clean = iteration_files(bare, 0)
+    check(len(clean) == 4 and all(iteration_files(bare, k) == clean
+                                  for k in (1, 2))
+          and bare["losses"] == [[0.0, 0.0]] * 2
+          and all(n == 0 for n, _ in bare["signs"]),
+          f"depth_divergence without --depth_dir: losses {bare['losses']}, "
+          "or an iteration's frames differ from the clean ones")
+    rec["no_depth_dir"] = {"run_s": bare["run_s"], "losses": bare["losses"],
+                           "nonzero_signs": bare["signs"],
+                           "launches": bare["launches"]}
+    return rec
+
+
+def tiny_depth_objective_card_vs_cpu(dev, objective):
+    """(f) The first step of the tiny DSGN in fp32 under a depth objective
+    (seeded maps, half the pixels at 3-50 m) on the card and on the CPU:
+    the loss and both image gradients, DEPTH_OBJECTIVE_PER_ITER on the
+    card."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.attack import objectives as O
+    from eval_driving_safety_tpu_torch.config import DSGNConfig, replace
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    cfg = replace(DSGNConfig.tiny(), dtype="float32")
+    il, ir, calib, _ = tiny_frames()
+    rng = np.random.RandomState(4)
+    depth = np.where(rng.rand(1, 96, 320) < 0.5,
+                     rng.uniform(3.0, 50.0, (1, 96, 320)), 0.0).astype(
+        np.float32)
+    cpu_model = DSGN(cfg).init_weights(seed=3).requires_grad_(False)
+    card_model = DSGN(cfg).requires_grad_(False)
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to(dev)
+    mean = np.asarray(cfg.input.mean, np.float32) * 255.0
+    std = np.asarray(cfg.input.std, np.float32) * 255.0
+
+    def run(device):
+        model = cpu_model if device == "cpu" else card_model
+        t = lambda a: torch.as_tensor(a).to(device)
+        xl, xr = (t(a).float().requires_grad_(True) for a in (il, ir))
+        m, s = t(mean), t(std)
+        out = model((xl - m) / s, (xr - m) / s, *(t(c) for c in calib))
+        loss = (O.depth_shift(out, t(depth), DEPTH_SHIFT_M, cfg)
+                if objective == "depth_shift"
+                else O.depth_divergence(out, t(depth), cfg))
+        grads = torch.autograd.grad(loss, (xl, xr))
+        return float(loss.detach()), [g.cpu() for g in grads]
+    card_vs_cpu(f"tiny_{objective}_card_vs_cpu", run,
+                DEPTH_OBJECTIVE_PER_ITER, dev)
+
+
+def debug_nans_sweep(tmp, dev, plain, scale="paper"):
+    """(g) One paper-scale iteration under --debug_nans (autograd's
+    anomaly mode): the bytes and losses of (a)'s sweep without it at
+    iterations 0 and 1; anomaly mode off again afterwards. Returns the
+    run's record and the steady-state iteration in anomaly mode."""
+    import torch
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    run = option_sweep(tmp, dev, "debug_nans", "--debug_nans", iters=1,
+                       scale=scale)
+    check(not torch.is_anomaly_enabled(), "--debug_nans left anomaly mode on")
+    check(all(iteration_files(run, k) == iteration_files(plain, k)
+              for k in (0, 1)) and len(iteration_files(run, 1)) == 4
+          and [l[:1] for l in plain["losses"]] == run["losses"],
+          f"--debug_nans: losses {run['losses']}, or its PNGs differ from "
+          "the sweep without it")
+    cfg = scale_cfg(scale)
+    model = DSGN(cfg).init_weights(0).to(dev).requires_grad_(False)
+    with torch.autograd.set_detect_anomaly(True):
+        ss, _ = steady_attack(model, cfg, dev, n=3)
+    return {"run_s": run["run_s"], "losses": run["losses"],
+            "launches": run["launches"],
+            "attack_iter_ms": ss["attack_iter_ms"]}
+
+
+def remat_steady_state(dev, card):
+    """Steady-state attack iteration of the fast DSGN at
+    DSGNConfig.full() without and with remat, in turns (plain, remat,
+    remat, plain), each with a profile of one iteration (kernel ms, busy
+    share) and its peak memory: the `remat_steady_state` line."""
+    import torch
+    from eval_driving_safety_tpu_torch.config import DSGNConfig
+    from eval_driving_safety_tpu_torch.models.dsgn import DSGN
+    rec = {"no_remat": [], "remat": []}
+    models = {}
+    for remat in (False, True, True, False):
+        cfg = DSGNConfig.full(remat=remat)
+        if remat not in models:
+            models[remat] = DSGN(cfg).init_weights(0).to(dev).requires_grad_(
+                False)
+        torch.cuda.empty_cache()
+        ss, attack = steady_attack(models[remat], cfg, dev)
+        rows, total_us, port_us = profile_kernels(lambda: attack(1))
+        rec["remat" if remat else "no_remat"].append(dict(
+            ss, profiled_kernel_ms=total_us / 1e3,
+            device_busy_share=(total_us / 1e3) / ss["attack_iter_ms"],
+            port_kernel_ms=port_us / 1e3))
+    rec["card"] = card
+    del models
+    torch.cuda.empty_cache()
+    log(json.dumps({"remat_steady_state": rec}))
+
+
+def options_phase(tmp, card, dev, phase2, scale="paper"):
+    """18. The CLIs' options that no earlier phase sets, over phase 4's
+    frames at --scale paper (--remat on the model axis runs in phase
+    15): (a)-(d) --remat in the attack, patch (fast model), attack
+    (compat model) and predict CLIs, each writing the bytes of its run
+    without it; (f) the depth objectives with --depth_dir, and without
+    it, and their tiny fp32 first step on the card and on the CPU; (g)
+    --debug_nans. Prints the `remat_steady_state` and `options` lines
+    and returns the record of the latter. `scale` "tiny" rehearses the
+    phase on the CPU, where no kernel launches (its launch checks fail)
+    and --remat, which acts at --scale paper only, changes nothing."""
+    import torch
+    t0 = time.perf_counter()
+    plain, remat = remat_sweeps(tmp, dev, phase2, scale)
+    rec = {"card": card, "frames": 2, "iters": OPTION_ITERS,
+           "remat_sweep": {
+               "run_s": plain["run_s"], "remat_run_s": remat["run_s"],
+               "losses": plain["losses"], "launches": plain["launches"],
+               "remat_launches": remat["launches"]}}
+    rec["remat_patch"] = remat_patch(tmp, dev, scale)
+    rec["remat_compat"] = remat_compat(tmp, dev, scale)
+    rec["remat_predict"] = remat_predict(tmp, dev, scale)
+    torch.cuda.empty_cache()
+    rec["depth_objectives"] = depth_objective_sweeps(tmp, dev, phase2,
+                                                     scale)
+    for objective in ("depth_divergence", "depth_shift"):
+        tiny_depth_objective_card_vs_cpu(dev, objective)
+    rec["debug_nans"] = debug_nans_sweep(tmp, dev, plain, scale)
+    torch.cuda.empty_cache()
+    remat_steady_state(dev, card)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"options": rec}))
+    rec["per_iter"] = {
+        "remat": {k: v / (2 * OPTION_ITERS)
+                  for k, v in remat["launches"].items()},
+        "depth_objective": {
+            k: v / (2 * OPTION_ITERS)
+            for k, v in rec["depth_objectives"]["depth_shift"][
+                "launches"].items()}}
+    return rec
+
+
 def launch_counts(launch_shapes):
     """{(kernel, shape): launches} of a rank's recorded launch shapes."""
     counts = {}
@@ -5682,6 +6156,10 @@ def main():
         # 15. the model axis: two gloo ranks on this card split the planes
         model_axis = model_axis_phase(tmp, card, dev, {**per, **per_ranks})
         lap("15_model_axis")
+        # 18. the options no earlier phase sets, over phase 4's frames:
+        # --remat, the depth objectives with --depth_dir, --debug_nans
+        options = options_phase(tmp, card, dev, phase2)
+        lap("18_options")
     torch.cuda.empty_cache()
     dsgn_steady = steady_state(full, dev, card)
     lap("4_attack_steady_state")
@@ -5816,6 +6294,16 @@ def main():
                 r[name] for r in model_axis["dsgn"]["rank_launches"]],
             "model_axis_compat_rank_launches_per_pgd_step": [
                 r[name] for r in model_axis["compat"]["rank_launches"]],
+            # phase 15 (e) and 18: the same with remat, the hourglass
+            # recomputed in the backward pass; phase 18 (f): under a depth
+            # objective
+            "model_axis_remat_rank_launches_per_pgd_step": [
+                r[name] for r in model_axis["dsgn"]["remat"][
+                    "rank_launches"]],
+            "launches_per_remat_attack_iter":
+                options["per_iter"]["remat"][name],
+            "launches_per_depth_objective_attack_iter":
+                options["per_iter"]["depth_objective"][name],
             # phase 16: the full story at the tiny config (400 training
             # steps, 8 PGD iterations, 2 detections) and at DSGNConfig()
             "demo_tiny_story_launches": demo["tiny"][name],

@@ -198,14 +198,20 @@ def test_objectives_match_jax(pair):
         np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
 
 
-def test_remat_gives_the_same_gradient():
-    """cfg.remat recomputes the hourglass in the backward pass: the same
-    arithmetic, so the input gradient is the same to the last bit up to
-    the CPU's own summation order (rtol 1e-6)."""
+@pytest.mark.parametrize("model_name", ["dsgn", "compat"])
+def test_remat_gives_the_same_gradient(model_name):
+    """cfg.remat recomputes the hourglass in the backward pass (the fast
+    model's Hourglass3D_0, the compat model's hg1): the same arithmetic,
+    so the input gradient is the same to the last bit up to the CPU's own
+    summation order (rtol 1e-6)."""
+    from eval_driving_safety_tpu_torch.models.dsgn_compat import (
+        DSGNCompat, DSGNCompatArch)
     base = dataclasses.replace(DSGNConfig.tiny(), dtype="float32")
     grads = []
     for remat in (False, True):
-        model = DSGN(dataclasses.replace(base, remat=remat)).init_weights(5)
+        cfg = dataclasses.replace(base, remat=remat)
+        model = (DSGN(cfg) if model_name == "dsgn"
+                 else DSGNCompat(cfg, DSGNCompatArch.tiny())).init_weights(5)
         il, ir = (torch.from_numpy(a).requires_grad_(True)
                   for a in _inputs()[:2])
         total, _, _ = _port_loss(base, model, il, ir)

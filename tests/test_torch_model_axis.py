@@ -10,7 +10,9 @@ op of the tiny DSGN against its whole version, and the tiny DSGN on the
 against the JAX package's models under its `constrain_psv` on the
 suite's virtual CPU devices (the JAX package's default `psv_method` and
 `depthconv_method`, as tests/test_torch_dsgn.py's library case runs
-them). All in fp32, with tests/test_torch_dsgn.py's tolerances: outputs
+them), each model also with remat: the hourglass recomputed in the
+backward pass, halo exchanges and all, against JAX's remat models, and
+bit for bit against the same ranks without it. All in fp32, with tests/test_torch_dsgn.py's tolerances: outputs
 rtol 1e-4 and the loss 1e-5, with a floor of 1e-4 x the largest
 reference magnitude; input gradients rtol 1e-3 with a floor of 1e-3 x
 the largest. A sharded op against its whole version in the port is held
@@ -174,17 +176,23 @@ def test_sharded_op_matches_its_whole_version(ranks, op):
 
 # ----- (c), (d) the tiny models against the JAX package's constrain_psv
 
-def _jax_dsgn(params, mesh_shape):
+def _jax_dsgn(params, mesh_shape, remat=False):
     import jax
     from eval_driving_safety_tpu.config import DSGNConfig as JaxDSGNConfig
     from eval_driving_safety_tpu.models.dsgn import DSGN as JaxDSGN
     from eval_driving_safety_tpu.models.rpn3d_loss import dsgn_total_loss
     from eval_driving_safety_tpu.parallel.sharding import (constrain_psv,
                                                            make_mesh)
-    jcfg = dataclasses.replace(JaxDSGNConfig.tiny(), dtype="float32")
+    jcfg = dataclasses.replace(JaxDSGNConfig.tiny(), dtype="float32",
+                               remat=remat)
     jm = JaxDSGN(jcfg, volume_constraint=functools.partial(
         constrain_psv, mesh=make_mesh(*mesh_shape)))
     il, ir, calib, depth, boxes, nb = R.model_inputs()
+    if remat:
+        # nn.remat's module is named CheckpointHourglass3D_0
+        tree = dict(params["params"])
+        tree["CheckpointHourglass3D_0"] = tree.pop("Hourglass3D_0")
+        params = {**params, "params": tree}
 
     def loss_fn(l255, r255):
         out = jm.apply(params, _norm(l255), _norm(r255), *calib)
@@ -195,19 +203,43 @@ def _jax_dsgn(params, mesh_shape):
         np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)],
-                         ids=["mesh1x2", "mesh2x2"])
-def test_tiny_dsgn_matches_jax_constrain_psv(ranks, weights, mesh_shape):
+# the halo exchanges a rank makes in one PGD step, (forward, backward):
+# with remat the hourglass's forward runs again inside the backward pass,
+# and with it its exchanges (the fast model's 9, the compat model's 6);
+# the backward's own exchanges are the same
+HALO_CALLS = {("dsgn", False): [14, 14], ("dsgn", True): [23, 14],
+              ("compat", False): [14, 14], ("compat", True): [20, 14]}
+
+
+def _same_as_without_remat(res, tag, plain_tag):
+    """Every result a rank recorded with remat equals, bit for bit, the
+    same rank's result without it (the halo counts aside)."""
+    for r in res:
+        for k in r:
+            if k.startswith(tag) and not k.endswith("halo_calls"):
+                np.testing.assert_array_equal(
+                    r[k], r[plain_tag + k[len(tag):]], k)
+
+
+@pytest.mark.parametrize("mesh_shape,remat", [
+    pytest.param((1, 2), False, id="mesh1x2"),
+    pytest.param((2, 2), False, id="mesh2x2"),
+    pytest.param((1, 2), True, id="mesh1x2-remat"),
+    pytest.param((2, 2), True, id="mesh2x2-remat")])
+def test_tiny_dsgn_matches_jax_constrain_psv(ranks, weights, mesh_shape,
+                                             remat):
     """The tiny DSGN on the (1, 2) mesh (the batch of 2 whole on both
     model ranks) and the (2, 2) mesh (a row a data row): depth maps, BEV
     outputs, the whole batch's loss and both image gradients against
     JAX's DSGN(cfg, volume_constraint=partial(constrain_psv, mesh)); the
     model ranks of a data row hold the same bits, and each rank made 14
-    halo exchanges forward and 14 back."""
+    halo exchanges forward and 14 back. With remat (cfg.remat, JAX's
+    nn.remat) against JAX's remat model, and bit for bit the same ranks'
+    results without it."""
     n_data, n_model = mesh_shape
     res = ranks[n_data * n_model].result()
-    loss, out, grads = _jax_dsgn(weights["dsgn"], mesh_shape)
-    t = f"m{n_data}{n_model}_"
+    loss, out, grads = _jax_dsgn(weights["dsgn"], mesh_shape, remat)
+    t = f"m{n_data}{n_model}{'r' if remat else ''}_"
     for row in range(n_data):
         group = res[row * n_model:(row + 1) * n_model]
         for r in group[1:]:
@@ -224,15 +256,16 @@ def test_tiny_dsgn_matches_jax_constrain_psv(ranks, weights, mesh_shape):
         _close(cat(k), out[k], 1e-4, 1e-4)
     for r in res:
         _close(r[t + "loss"], loss, 1e-5, 1e-6)
-        assert r[t + "halo_calls"].tolist() == [14, 14]
+        assert r[t + "halo_calls"].tolist() == HALO_CALLS["dsgn", remat]
     _close(cat("grad_l"), grads[0], 1e-3, 1e-3)
     _close(cat("grad_r"), grads[1], 1e-3, 1e-3)
+    if remat:
+        _same_as_without_remat(res, t, f"m{n_data}{n_model}_")
 
 
-def test_tiny_compat_matches_jax_constrain_psv(ranks, weights):
+def _check_tiny_compat(ranks, weights, remat):
     """The tiny compat model on the (1, 2) mesh against the JAX compat
-    model under constrain_psv: depth map, BEV outputs, loss and both
-    image gradients, the same bits on both model ranks."""
+    model under constrain_psv (with remat, its remat model)."""
     import jax
     from eval_driving_safety_tpu.config import DSGNConfig as JaxDSGNConfig
     from eval_driving_safety_tpu.models import dsgn_compat as JC
@@ -240,7 +273,8 @@ def test_tiny_compat_matches_jax_constrain_psv(ranks, weights):
     from eval_driving_safety_tpu.parallel.sharding import (constrain_psv,
                                                            make_mesh)
     res = ranks[2].result()
-    jcfg = dataclasses.replace(JaxDSGNConfig.tiny(), dtype="float32")
+    jcfg = dataclasses.replace(JaxDSGNConfig.tiny(), dtype="float32",
+                               remat=remat)
     jm = JC.DSGNCompat(jcfg, weights["compat_arch"],
                        volume_constraint=functools.partial(
                            constrain_psv, mesh=make_mesh(1, 2)))
@@ -251,16 +285,34 @@ def test_tiny_compat_matches_jax_constrain_psv(ranks, weights):
         return dsgn_total_loss(out, depth, boxes, nb, jcfg)[0], out
     (loss, out), grads = jax.jit(jax.value_and_grad(
         loss_fn, argnums=(0, 1), has_aux=True))(il, ir)
+    t = "compatr_" if remat else "compat_"
     for k in res[0]:
-        if k.startswith("compat_"):
+        if k.startswith(t):
             np.testing.assert_array_equal(res[1][k], res[0][k], k)
     r = res[0]
-    _close(r["compat_depth"], out["depth_preds"][0], 1e-4, 1e-4)
+    _close(r[t + "depth"], out["depth_preds"][0], 1e-4, 1e-4)
     for k in ("bbox_cls", "bbox_reg", "bbox_centerness"):
-        _close(r["compat_" + k], out[k], 1e-4, 1e-4)
-    _close(r["compat_loss"], float(loss), 1e-5, 1e-6)
-    _close(r["compat_grad_l"], grads[0], 1e-3, 1e-3)
-    _close(r["compat_grad_r"], grads[1], 1e-3, 1e-3)
+        _close(r[t + k], out[k], 1e-4, 1e-4)
+    _close(r[t + "loss"], float(loss), 1e-5, 1e-6)
+    _close(r[t + "grad_l"], grads[0], 1e-3, 1e-3)
+    _close(r[t + "grad_r"], grads[1], 1e-3, 1e-3)
+    assert r[t + "halo_calls"].tolist() == HALO_CALLS["compat", remat]
+    if remat:
+        _same_as_without_remat(res, t, "compat_")
+
+
+def test_tiny_compat_matches_jax_constrain_psv(ranks, weights):
+    """The tiny compat model on the (1, 2) mesh against the JAX compat
+    model under constrain_psv: depth map, BEV outputs, loss and both
+    image gradients, the same bits on both model ranks."""
+    _check_tiny_compat(ranks, weights, remat=False)
+
+
+def test_tiny_compat_with_remat_matches_jax_constrain_psv(ranks, weights):
+    """The same with remat (cfg.remat; JAX's nn.remat): its hourglass
+    recomputed in the backward pass, halo exchanges and all, against
+    JAX's remat model, and bit for bit the ranks' results without it."""
+    _check_tiny_compat(ranks, weights, remat=True)
 
 
 # ----- (e) the dry run; (f) the refusals -----

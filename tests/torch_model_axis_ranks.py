@@ -32,8 +32,9 @@ HALOS = ((1, 1), (0, 1), (1, 0), (2, 1))
 BATCH = 2
 
 
-def tiny_cfg():
-    return dataclasses.replace(DSGNConfig.tiny(), dtype="float32")
+def tiny_cfg(remat=False):
+    return dataclasses.replace(DSGNConfig.tiny(), dtype="float32",
+                               remat=remat)
 
 
 def model_inputs(b=BATCH):
@@ -189,14 +190,22 @@ def sharded_ops(mesh, res):
         vol(1, d, h, w, cfg.gv_channels), cut(d), None, replicated=True)
 
 
-def dsgn_run(mesh, weights, res, tag):
+def halo_calls():
+    """The halo exchanges' calls since the traffic was reset: (forward,
+    backward)."""
+    return np.array([V.traffic[f"halo_exchange.{d}"]["calls"]
+                     for d in ("fwd", "bwd")])
+
+
+def dsgn_run(mesh, weights, res, tag, remat=False):
     """The tiny DSGN on `mesh`'s model axis: this rank's rows of the
     batch, its outputs, the loss over the whole batch and the rows' image
-    gradients, as the PGD step computes them."""
+    gradients, as the PGD step computes them; with `remat` the hourglass
+    is recomputed in the backward pass (cfg.remat)."""
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
     from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
         dsgn_total_loss
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(remat)
     model = DSGN(cfg, volume_constraint=V.constrain_psv(mesh))
     model.load_state_dict(torch.load(weights, weights_only=True))
     model.requires_grad_(False)
@@ -221,33 +230,33 @@ def dsgn_run(mesh, weights, res, tag):
         res[tag + k] = out[k].detach().numpy()
     res[tag + "grad_l"], res[tag + "grad_r"] = gl.numpy(), gr.numpy()
     res[tag + "rows"] = np.arange(BATCH)[sharding.rows]
-    res[tag + "halo_calls"] = np.array(
-        [V.traffic["halo_exchange.fwd"]["calls"],
-         V.traffic["halo_exchange.bwd"]["calls"]])
+    res[tag + "halo_calls"] = halo_calls()
 
 
-def compat_run(mesh, weights, res):
+def compat_run(mesh, weights, res, tag="compat_", remat=False):
     """The tiny compat model on `mesh`'s model axis, as `dsgn_run`."""
     from eval_driving_safety_tpu_torch.models import dsgn_compat as TC
     from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
         dsgn_total_loss
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(remat)
     model = TC.DSGNCompat(cfg, TC.DSGNCompatArch.tiny(),
                           volume_constraint=V.constrain_psv(mesh))
     model.load_state_dict(torch.load(weights, weights_only=True))
     model.requires_grad_(False)
     il, ir, calib, depth, boxes, nb = compat_inputs()
     vl, vr = (torch.from_numpy(a).requires_grad_(True) for a in (il, ir))
+    V.reset_traffic()
     out = model(vl, vr, *(torch.from_numpy(c) for c in calib))
     total, _ = dsgn_total_loss(out, torch.from_numpy(depth),
                                torch.from_numpy(boxes),
                                torch.from_numpy(nb.astype(np.int64)), cfg)
     gl, gr = torch.autograd.grad(total, (vl, vr))
-    res["compat_loss"] = total.detach().numpy()
-    res["compat_depth"] = out["depth_preds"][0].detach().numpy()
+    res[tag + "loss"] = total.detach().numpy()
+    res[tag + "depth"] = out["depth_preds"][0].detach().numpy()
     for k in ("bbox_cls", "bbox_reg", "bbox_centerness"):
-        res["compat_" + k] = out[k].detach().numpy()
-    res["compat_grad_l"], res["compat_grad_r"] = gl.numpy(), gr.numpy()
+        res[tag + k] = out[k].detach().numpy()
+    res[tag + "grad_l"], res[tag + "grad_r"] = gl.numpy(), gr.numpy()
+    res[tag + "halo_calls"] = halo_calls()
 
 
 def main(out, weights_dir):
@@ -259,11 +268,16 @@ def main(out, weights_dir):
     if world == 2:
         mesh = S.make_mesh(1, 2)
         sharded_ops(mesh, res)
-        dsgn_run(mesh, os.path.join(weights_dir, "dsgn.pt"), res, "m12_")
-        compat_run(mesh, os.path.join(weights_dir, "compat.pt"), res)
+        for remat, r in ((False, ""), (True, "r")):
+            dsgn_run(mesh, os.path.join(weights_dir, "dsgn.pt"), res,
+                     f"m12{r}_", remat)
+            compat_run(mesh, os.path.join(weights_dir, "compat.pt"), res,
+                       f"compat{r}_", remat)
     else:
         mesh = S.make_mesh(2, 2)
-        dsgn_run(mesh, os.path.join(weights_dir, "dsgn.pt"), res, "m22_")
+        for remat, r in ((False, ""), (True, "r")):
+            dsgn_run(mesh, os.path.join(weights_dir, "dsgn.pt"), res,
+                     f"m22{r}_", remat)
     np.savez(out.replace("{rank}", str(mesh.rank)), **res)
     S.destroy_process_group()
 
