@@ -14,9 +14,10 @@ Phases (any failure ends the run with a non-zero exit):
      time kernel, plain version and a library yardstick on two
      clocks: `ms` is one call timed with CUDA events, host dispatch
      included, and `device_ms` the card's own time for the call (calls
-     queued behind a sleep kernel, utils/cuda_timing.py); hold the bf16
-     depth-tap conv (forward
-     and dx) at the edges of its tiles and on misaligned views; time the
+     queued behind a sleep kernel, utils/cuda_timing.py); hold the
+     depth-tap conv (forward and dx) in bf16 and fp32 at the edges of
+     its kernels' tiles and runs of planes, the fp32 kernels bit for bit
+     from call to call, and on misaligned views; time the
      weight-gradient kernel alone (not on the attack path; phase 5 runs
      it in training); hold K1 and K2
      (forward and backward PSV warp) at the edges of their design: other
@@ -573,49 +574,106 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad, shapes=None):
         del yk, yp, yp_relu, yk_all, yp_all, yk_w, yp_w
 
 
+# (B, D, N, C, F) of the depth-tap conv's edge checks, per dtype. bf16:
+# the tensor-core kernels' tiles (64 pixels; D chunks of 4 planes, 3 at
+# width 64). fp32: the CUDA-core kernel's pixel tiles (128 pixels at
+# output widths up to 32, 64 at 64) and its runs of planes (one wave of
+# blocks, each an equal run of the items: one-plane runs, runs that end
+# in one plane of a tile, runs that cross tiles, D = 1 across tiles).
+DEPTHCONV_EDGES = {
+    "bfloat16": [(1, 1, 35, 32, 32), (2, 2, 35, 64, 32), (1, 3, 65, 32, 64),
+                 (1, 13, 35, 64, 32), (2, 13, 65, 8, 16), (1, 5, 65, 16, 8),
+                 (1, 4, 129, 64, 64), (1, 2, 1, 8, 8), (1, 9, 2561, 32, 32),
+                 (1, 7, 130, 16, 64)],
+    "float32": [(1, 1, 129, 32, 32), (2, 2, 65, 64, 64), (1, 3, 129, 16, 8),
+                (1, 13, 65, 64, 32), (2, 13, 129, 8, 16), (1, 5, 257, 32, 64),
+                (1, 2, 1, 8, 8), (1, 7, 130, 16, 64), (2, 40, 2561, 32, 32),
+                (1, 48, 1000, 64, 64), (1, 1, 60000, 32, 32)],
+}
+
+
+def f32_runs(b, d, n, tile, blocks):
+    """The planes of each run of each block of an fp32 launch: the items
+    (b, tile, plane) cut into `blocks` equal contiguous ranges."""
+    items = b * -(-n // tile) * d
+    out = []
+    for s in range(blocks):
+        i, i1, runs = s * items // blocks, (s + 1) * items // blocks, []
+        while i < i1:
+            d0 = i % d
+            runs.append(min(d, d0 + i1 - i) - d0)
+            i += runs[-1]
+        out.append(runs)
+    return out
+
+
 def check_depthconv_edges(dev):
-    """The bf16 depth-tap conv, forward and dx, against the plain version
-    at the edges of the tensor-core kernels' tiles: N ragged against the
-    64-pixel tile, D of 1, 2, 3, D split into chunks across blocks with a
-    last chunk of one plane (D = 13: chunks of 4 planes at widths up to
-    32, of 3 at 64), C != F, widths of 8 (padded to the MMA's K of 16),
-    ReLU on and off."""
+    """The depth-tap conv, forward and dx, against the plain version at
+    the edges of each dtype's kernels (`DEPTHCONV_EDGES`): N ragged
+    against the pixel tile (one past it), D of 1, 2, 3, D split across
+    blocks with a last part of one plane, C != F, widths of 8 (padded to
+    the MMA's K of 16 in bf16), ReLU on and off, B = 2; in fp32 two calls
+    give the same bits and the cases cover the launch geometry's runs.
+    Then misaligned views in each dtype."""
     import torch
     from eval_driving_safety_tpu_torch.ops.depthconv import (
-        depth_tap_conv, reference_depth_tap_conv)
-    dt, rtol = torch.bfloat16, RTOL["bfloat16"]
-    g = torch.Generator(device=dev).manual_seed(2)
-    cases = [(1, 1, 35, 32, 32), (2, 2, 35, 64, 32), (1, 3, 65, 32, 64),
-             (1, 13, 35, 64, 32), (2, 13, 65, 8, 16), (1, 5, 65, 16, 8),
-             (1, 4, 129, 64, 64), (1, 2, 1, 8, 8), (1, 9, 2561, 32, 32),
-             (1, 7, 130, 16, 64)]
-    worst = 0.0
-    for b, d, n, c, f in cases:
-        x = (torch.randn(b, d, n, 1, c, device=dev, generator=g) * 0.5).to(dt)
-        w = (torch.randn(3, c, f, device=dev, generator=g) / c ** 0.5).to(dt)
-        inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
-        off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
-        dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
-        for relu in (True, False):
-            tag = f"{(b, d, n, c, f)} relu={relu} bfloat16"
-            xk = x.clone().requires_grad_(True)
-            xp = x.clone().requires_grad_(True)
-            y = depth_tap_conv(xk, w, inv, off, relu)
-            y_ref = reference_depth_tap_conv(xp, w, inv, off, relu)
-            compare(f"depth_tap_conv_fwd edge {tag}", y, y_ref, rtol)
-            # dx under the kernel's own ReLU mask, as in check_depthconv
-            dm = dy * (y.detach() > 0) if relu else dy
-            yl = reference_depth_tap_conv(xp, w, inv, off, relu=False)
-            (dxk,) = torch.autograd.grad(y, xk, dy)
-            (dxp,) = torch.autograd.grad(yl, xp, dm)
-            compare(f"depth_tap_conv_bwd dx edge {tag}", dxk, dxp, rtol)
-            for a_, r_ in ((y, y_ref), (dxk, dxp)):
-                worst = max(worst, max_err(a_, r_) / max(
-                    float(r_.detach().float().abs().max()), 1e-30))
-    copies = misaligned_views(dev)
-    log(json.dumps({"depthconv_bf16_edges": {
-        "cases": len(cases) * 2, "max_err_over_max_ref": worst,
-        "rtol": rtol, "misaligned_view_copies": copies}}))
+        depth_tap_conv, f32_geometry, reference_depth_tap_conv)
+    for dtype_name, seed in (("bfloat16", 2), ("float32", 6)):
+        dt, rtol = getattr(torch, dtype_name), RTOL[dtype_name]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cases = DEPTHCONV_EDGES[dtype_name]
+        worst, runs = 0.0, {"one_plane": 0, "longer": 0, "across_tiles": 0,
+                            "one_past_tile": 0}
+        for b, d, n, c, f in cases:
+            if dtype_name == "float32":
+                for dx in (False, True):
+                    tile, blocks = f32_geometry(b, d, n, c, f, dx)
+                    per_block = f32_runs(b, d, n, tile, blocks)
+                    flat = [r for rs in per_block for r in rs]
+                    runs["one_plane"] += flat.count(1)
+                    runs["longer"] += sum(r > 1 for r in flat)
+                    runs["across_tiles"] += sum(len(rs) > 1
+                                                for rs in per_block)
+                    runs["one_past_tile"] += n % tile == 1
+            x = (torch.randn(b, d, n, 1, c, device=dev, generator=g)
+                 * 0.5).to(dt)
+            w = (torch.randn(3, c, f, device=dev, generator=g)
+                 / c ** 0.5).to(dt)
+            inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
+            off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
+            dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
+            for relu in (True, False):
+                tag = f"{(b, d, n, c, f)} relu={relu} {dtype_name}"
+                xk = x.clone().requires_grad_(True)
+                xp = x.clone().requires_grad_(True)
+                y = depth_tap_conv(xk, w, inv, off, relu)
+                y_ref = reference_depth_tap_conv(xp, w, inv, off, relu)
+                compare(f"depth_tap_conv_fwd edge {tag}", y, y_ref, rtol)
+                # dx under the kernel's own ReLU mask, as in
+                # check_depthconv
+                dm = dy * (y.detach() > 0) if relu else dy
+                yl = reference_depth_tap_conv(xp, w, inv, off, relu=False)
+                (dxk,) = torch.autograd.grad(y, xk, dy, retain_graph=True)
+                (dxp,) = torch.autograd.grad(yl, xp, dm)
+                compare(f"depth_tap_conv_bwd dx edge {tag}", dxk, dxp, rtol)
+                if dtype_name == "float32":
+                    (dx2,) = torch.autograd.grad(y, xk, dy)
+                    y2 = depth_tap_conv(x, w, inv, off, relu)
+                    check(torch.equal(y2, y.detach()) and
+                          torch.equal(dx2, dxk),
+                          f"depth_tap_conv edge {tag}: two calls differ")
+                for a_, r_ in ((y, y_ref), (dxk, dxp)):
+                    worst = max(worst, max_err(a_, r_) / max(
+                        float(r_.detach().float().abs().max()), 1e-30))
+        copies = misaligned_views(dev, dtype_name)
+        rec = {"cases": len(cases) * 2, "max_err_over_max_ref": worst,
+               "rtol": rtol, "misaligned_view_copies": copies}
+        if dtype_name == "float32":
+            check(all(runs.values()), f"fp32 edge cases miss a run kind: "
+                  f"{runs}")
+            rec.update(bit_for_bit_repeats=True, runs=runs)
+        short = {"bfloat16": "bf16", "float32": "fp32"}[dtype_name]
+        log(json.dumps({f"depthconv_{short}_edges": rec}))
 
 
 def check_depthconv_wgrad_edges(dev):
@@ -809,14 +867,14 @@ def offset_view(t, requires_grad=False):
     return buf.requires_grad_(requires_grad)[1:].view(t.shape)
 
 
-def misaligned_views(dev):
-    """The bf16 depth-tap conv on x, w and dy given as misaligned views:
-    the wrapper copies each once, counted, and forward and dx equal those
-    of aligned inputs bit for bit. Returns the copies counted."""
+def misaligned_views(dev, dtype_name="bfloat16"):
+    """The depth-tap conv on x, w and dy given as misaligned views: the
+    wrapper copies each once, counted, and forward and dx equal those of
+    aligned inputs bit for bit. Returns the copies counted."""
     import torch
     from eval_driving_safety_tpu_torch.ops import _cuda
     from eval_driving_safety_tpu_torch.ops.depthconv import depth_tap_conv
-    dt = torch.bfloat16
+    dt = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(3)
     x = (torch.randn(1, 5, 13, 5, 32, device=dev, generator=g) * 0.5).to(dt)
     w = (torch.randn(3, 32, 32, device=dev, generator=g) / 32 ** 0.5).to(dt)
@@ -833,9 +891,11 @@ def misaligned_views(dev):
     ym = depth_tap_conv(xm, wm, inv, off)
     (dxm,) = torch.autograd.grad(ym, xm, dym)
     copies = _cuda.align_copies["depth_tap_conv"] - before
-    check(copies == 3, f"misaligned x, w, dy: {copies} copies, not 3")
+    check(copies == 3, f"misaligned x, w, dy: {copies} copies, not 3 "
+          f"({dtype_name})")
     check(torch.equal(ym, ya) and torch.equal(dxm, dxa),
-          "misaligned views give other results than aligned inputs")
+          f"misaligned views give other results than aligned inputs "
+          f"({dtype_name})")
     return copies
 
 
@@ -917,9 +977,13 @@ def tiny_card_vs_cpu(dev):
         return float(loss.detach()), gl.cpu(), gr.cpu()
 
     before = dict(_cuda.launches)
+    copies = _cuda.align_copies["depth_tap_conv"]
     lc, glc, grc = run(cpu_model, "cpu")
     lk, glk, grk = run(card_model, dev)
     moved = {k: _cuda.launches[k] - before[k] for k in before}
+    check(_cuda.align_copies["depth_tap_conv"] == copies,
+          "the tiny fp32 model's inputs to the depth-tap conv needed "
+          "alignment copies")
     # rtol 1e-4 on the loss, 1e-3 x max on the gradients: the same fp32
     # arithmetic summed in other orders through ~40 layers (TF32 off)
     check(abs(lk - lc) <= 1e-4 * abs(lc), f"tiny loss card {lk} cpu {lc}")
@@ -6188,7 +6252,10 @@ def main():
         for r in per_iteration(wgrad, wcounts, dt).values()}}))
     log(json.dumps({"kernel_fp32": {
         k: dict(max_abs_err=v["err"], **{m: v[m] for m in TIME_KEYS},
-                bound_ms=bound(v, "float32")[0])
+                bound_ms=bound(v, "float32")[0],
+                bound_by=bound(v, "float32")[1],
+                device_bound_share=bound(v, "float32")[0] / v["device_ms"],
+                launches=v["launches_per_iter"])
         for k, v in per_iteration(per, counts, "float32").items()}}))
 
     # 5. training at DSGNConfig() in bf16: the training CLI (checkpoints,

@@ -19,8 +19,8 @@
 // eval_driving_safety_tpu/ops/pallas_depthconv.py, by dtype:
 //   bf16 forward   dtc_fwd_mma_kernel  <- `_fwd_kernel` (via `_pallas_fwd`)
 //   bf16 dx        dtc_dx_mma_kernel   <- `_bwd_kernel`'s dx (`_pallas_bwd`)
-//   fp32 forward   dtc_fwd_kernel      <- `_fwd_kernel`
-//   fp32 dx        dtc_dx_kernel       <- `_bwd_kernel`'s dx
+//   fp32 forward   dtc_f32_kernel<false, F>  <- `_fwd_kernel`
+//   fp32 dx        dtc_f32_kernel<true, C>   <- `_bwd_kernel`'s dx
 //   bf16 dW, d inv, d off  dtc_wgrad_mma_kernel + dtc_wgrad_reduce_kernel
 //                                      <- `_bwd_kernel`'s rest
 //   fp32 dW, d inv, d off  dtc_wgrad_kernel    <- `_bwd_kernel`'s rest
@@ -75,15 +75,35 @@
 // kernel sums the partials in slice order and applies the epilogue, so
 // the sums are the same bits on every run and every card, without atomics.
 //
-// fp32 design (the tiny model's card-vs-CPU check; not on the attack
-// path, and TF32 would not hold its 1e-4 tolerance). A block owns NB = 32
-// pixels and DC = 8 planes, stages the DC + 2 input rows and the weights
-// as f32 in shared memory, and each of 256 threads computes a 4-pixel x
-// F/4-feature tile with f32 FMAs (`tap_tile`). The fp32 wgrad kernel
-// (only when the weights need a gradient) reuses that staging, recomputes
-// z from x as the TPU kernel does, and adds each block's sums to the
-// zeroed f32 outputs with atomics, so its sums vary in the last bits from
-// run to run.
+// fp32 design (the fp32 card-vs-CPU checks; no CLI builds an fp32 DSGN).
+// Tensor cores take f32 only as TF32, whose one pass does not hold the
+// fp32 tolerance of 1e-5, so fp32 runs on CUDA-core FMAs and is bound by
+// operations (67 TFLOP/s against 3.35 TB/s). dtc_f32_kernel serves the
+// forward and dx, templated on the output width KOUT: the launch's items
+// (b, pixel tile, output plane) are cut into one wave of equal contiguous
+// runs, one per block, and a block walks its runs' input planes in order.
+// Each plane's tile (NB pixels x kin channels, channel-last as in memory,
+// rows padded by 4 floats so a warp's reads of 8 rows hit distinct banks)
+// is copied by 16-byte cp.async into a ring, the next plane in flight
+// while this one is computed; runs cross tile boundaries within a block,
+// and the copies run ahead across them. Each input plane is read from
+// device memory once per run, a halo plane at each end. A thread holds
+// TM = 4 pixels x 8 outputs of three output planes in registers (96
+// accumulators): input plane e adds tap 0 to output e + 1, tap 1 to e,
+// tap 2 to e - 1, so a staged plane is read once and output e - 1 is
+// then written. Per channel a thread reads TM x floats and 8 weight floats
+// per tap for 24 FMAs a tap, and its warp's weight reads are broadcasts
+// of one row: the FMAs, not shared memory, set the pace. The weights (W_t,
+// or for dx W_{2-t}^T) and inv/off are staged once per block. dx forms dz
+// = dy * 1[y > 0] * inv in f32 in the thread that copied each chunk, once
+// per staged plane. The forward epilogue applies inv/off and the ReLU in
+// f32 and every thread stores its pixels' outputs as 16-byte runs. Each
+// output is summed in one fixed order (taps 0, 1, 2, channels in order)
+// and written by one thread, so the result does not depend on the split.
+// The fp32 wgrad kernel (only when the weights need a gradient) stages
+// rows with scalar loads (`stage_rows`), recomputes z from x as the TPU
+// kernel does (`tap_tile`), and adds each block's sums to the zeroed f32
+// outputs with atomics, so its sums vary in the last bits from run to run.
 #include "common.cuh"
 
 #include <type_traits>
@@ -695,7 +715,327 @@ dtc_wgrad_reduce_kernel(const float* __restrict__ ws,
   if (threadIdx.x == 0) dco[f] = part[0][0];
 }
 
-// ------------------------------------------------ fp32: CUDA cores
+// ------------------------------------------ fp32 forward and dx: CUDA cores
+
+// One kernel per direction and output width KOUT (F for the forward, C
+// for dx); the input width kin (C, or F for dx) is a launch argument.
+// The (b, pixel tile, output plane) items of a launch are cut into equal
+// contiguous runs, one per block, and a block walks its runs' input
+// planes in order through a ring of staged planes. A thread owns TM
+// pixels x 8 outputs of three output planes at once: input plane e adds
+// tap 0 to output plane e + 1, tap 1 to e and tap 2 to e - 1 (acc[t]),
+// so a staged plane is read by the FMAs once and then dropped, and an
+// output plane is complete, and written, after input plane e + 1.
+// The choices below are the fastest that cli/depthconv_split.py --fp32
+// timed at the paper shapes on an H100 (PERF.md): 4 pixels a thread over
+// 2; one plane in flight (a second moved nothing: a plane's FMAs outlast
+// its copy); two blocks an SM at widths up to 32, which leaves a thread
+// 255 registers (three leave 168, and the forward then spills).
+constexpr int kF32Threads = 128;
+constexpr int kF32PixelsPerThread = 4;  // TM at output widths 32 and 64
+constexpr int kF32Look = 1;             // planes in flight past the current
+constexpr int kF32MinBlocks = 2;        // resident blocks an SM, widths <= 32
+
+template <int KOUT>
+struct F32Tile {
+  static constexpr int G = KOUT / 8;           // groups of 8 outputs
+  static constexpr int GW = G < 4 ? G : 4;     // groups within one warp
+  static constexpr int WG = G / GW;            // warps across the groups
+  static constexpr int P = kF32Threads / G;    // pixel groups of a block
+  // pixels a thread: kF32PixelsPerThread, but a tile of at most 128
+  static constexpr int TMax = P >= 128 ? 1 : 128 / P;
+  static constexpr int TM =
+      kF32PixelsPerThread < TMax ? kF32PixelsPerThread : TMax;
+  static constexpr int NB = P * TM;            // pixels of a tile
+  static constexpr int WS = KOUT + 4;          // staged weight row, floats
+  // resident blocks the registers must leave room for (shared memory
+  // holds no more than two at KOUT = 64)
+  static constexpr int kMinBlocks = KOUT == 64 ? 2 : kF32MinBlocks;
+};
+
+// The run of a block being fetched or computed: output planes [d0, d1)
+// of pixel tile n0 of image b, read as input planes e = max(d0 - 1, 0)
+// .. hi = min(d1, D - 1) (planes outside [0, D) are zero and skipped).
+struct F32Run {
+  int64_t item, b;   // the run's first item; its image
+  int n0, d0, d1, e, hi;
+};
+
+__device__ __forceinline__ bool f32_begin(F32Run& r, int64_t item,
+                                          int64_t i1, int D, int tiles,
+                                          int nb) {
+  if (item >= i1) return false;
+  const int64_t bt = item / D;
+  r.item = item;
+  r.b = bt / tiles;
+  r.n0 = (int)(bt - r.b * tiles) * nb;
+  r.d0 = (int)(item - bt * D);
+  r.d1 = i1 - item < D - r.d0 ? r.d0 + (int)(i1 - item) : D;
+  r.e = r.d0 > 0 ? r.d0 - 1 : 0;
+  r.hi = r.d1 < D ? r.d1 : D - 1;
+  return true;
+}
+
+// the next input plane of the block's walk (the next run's first one
+// after a run's last); false past the block's last item
+__device__ __forceinline__ bool f32_next(F32Run& r, int64_t i1, int D,
+                                         int tiles, int nb) {
+  if (++r.e <= r.hi) return true;
+  return f32_begin(r, r.item + (r.d1 - r.d0), i1, D, tiles, nb);
+}
+
+// acc[t] += x W_t for each tap t in MASK, channel by channel in order:
+// x is this thread's TM pixel rows of the staged plane (`xs`, rows rsP
+// floats apart), W_t rows of the staged weights (`wt`, this thread's
+// first output column, taps wtap floats apart). Outputs 0-3 of a thread
+// are columns wt[0..3], outputs 4-7 columns wt[KOUT / 2 ..].
+template <int MASK, int TM, int KOUT>
+__device__ __forceinline__ void f32_taps(const float* __restrict__ xs,
+                                         int rsP,
+                                         const float* __restrict__ wt,
+                                         int wtap, int kin,
+                                         float (&acc)[3][TM][8]) {
+  constexpr int WS = KOUT + 4;
+#pragma unroll 2
+  for (int c4 = 0; c4 < kin / 4; ++c4) {
+    float4 xv[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(xs + i * rsP + 4 * c4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* wr = wt + (4 * c4 + j) * WS;
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        if (!((MASK >> t) & 1)) continue;
+        const float4 w0 = *reinterpret_cast<const float4*>(wr + t * wtap);
+        const float4 w1 =
+            *reinterpret_cast<const float4*>(wr + t * wtap + KOUT / 2);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xe = j == 0 ? xv[i].x : j == 1 ? xv[i].y
+                         : j == 2 ? xv[i].z : xv[i].w;
+          float* o = acc[t][i];
+          o[0] = fmaf(xe, w0.x, o[0]);
+          o[1] = fmaf(xe, w0.y, o[1]);
+          o[2] = fmaf(xe, w0.z, o[2]);
+          o[3] = fmaf(xe, w0.w, o[3]);
+          o[4] = fmaf(xe, w1.x, o[4]);
+          o[5] = fmaf(xe, w1.y, o[5]);
+          o[6] = fmaf(xe, w1.z, o[6]);
+          o[7] = fmaf(xe, w1.w, o[7]);
+        }
+      }
+    }
+  }
+}
+
+// Forward (DX false): a = x (B, D, N, kin = C), out = y (B, D, N, KOUT =
+// F). dx (DX true): a = dy and yv = y (B, D, N, kin = F), out = dx (B, D,
+// N, KOUT = C); off is read by the forward only. w is (3, C, F) in both.
+// a, yv and out are 16-byte aligned; `items` = B * tiles * D.
+template <bool DX, int KOUT>
+__global__ void __launch_bounds__(kF32Threads, F32Tile<KOUT>::kMinBlocks)
+dtc_f32_kernel(const float* __restrict__ a, const float* __restrict__ yv,
+               const float* __restrict__ w, const float* __restrict__ inv,
+               const float* __restrict__ off, float* __restrict__ out,
+               int D, int N, int kin, int relu, int64_t items) {
+  using T = F32Tile<KOUT>;
+  constexpr int TM = T::TM, NB = T::NB, P = T::P, WS = T::WS;
+  constexpr int kRing = kF32Look + 1;
+  extern __shared__ float4 smem_f32[];
+  const int rs = kin + 4, slot = NB * rs;      // padded pixel rows
+  float* ring = reinterpret_cast<float*>(smem_f32);  // [kRing][NB][rs]
+  float* yring = ring + kRing * slot;          // [kF32Look][NB][rs] (dx)
+  float* ws = yring + (DX ? kF32Look * slot : 0);    // [3][kin][WS]
+  float* cs = ws + 3 * kin * WS;               // inv, off [2][KOUT] (fwd)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // output group fg (outputs 4 fg .. + 3 and KOUT / 2 + 4 fg .. + 3) and
+  // pixel group pg (tile pixels pg + P i): a warp holds GW groups of
+  // 32 / GW consecutive pixel rows, so its x reads hit distinct banks
+  // (rs / 4 is odd) and its weight reads are broadcasts of one row
+  const int fg = lane % T::GW + T::GW * (warp % T::WG);
+  const int pg = lane / T::GW + (32 / T::GW) * (warp / T::WG);
+  const int C = DX ? KOUT : kin, F = DX ? kin : KOUT;
+
+  // the weights once per block: forward ws[t][c][f] = W_t; dx ws[t][f][c]
+  // = W_{2-t}^T, so that dx is the same walk over dz
+  for (int i = tid; i < 3 * C * F; i += kF32Threads) {
+    const int t = i / (C * F), r = i - t * (C * F), c = r / F, f = r - c * F;
+    if constexpr (DX)
+      ws[((2 - t) * F + f) * WS + c] = w[i];
+    else
+      ws[(t * C + c) * WS + f] = w[i];
+  }
+  if constexpr (!DX) {
+    for (int i = tid; i < KOUT; i += kF32Threads) {
+      cs[i] = inv[i];
+      cs[KOUT + i] = off[i];
+    }
+  }
+  // a thread copies chunk column jc of tile rows r0, r0 + rstep, ...
+  // (kin / 4 divides the threads), the same chunks of every plane; dx
+  // scales them by inv
+  const int ch = kin / 4, jc = tid % ch, r0 = tid / ch;
+  const int rstep = kF32Threads / ch;
+  const int own = r0 * rs + 4 * jc, own_step = rstep * rs;
+  float4 sc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (DX)
+    sc = make_float4(inv[4 * jc], inv[4 * jc + 1], inv[4 * jc + 2],
+                     inv[4 * jc + 3]);
+
+  // copy input plane r.e of r's tile into ring slot s (and y's slot for
+  // dx); rows past N are zero-filled
+  auto fetch = [&](const F32Run& r, int s) {
+    float* dst = ring + (s % kRing) * slot + own;
+    float* ydst = yring + (s % kF32Look) * slot + own;
+    const int64_t plane = (r.b * D + r.e) * (int64_t)N * kin;
+    int64_t g = plane + (int64_t)(r.n0 + r0) * kin + 4 * jc;
+    const int64_t g_step = (int64_t)rstep * kin;
+    for (int row = r0, n = r.n0 + r0; row < NB; row += rstep, n += rstep) {
+      const bool ok = n < N;
+      cp_async16(dst, a + (ok ? g : plane), ok ? 16 : 0);
+      if (DX && relu) cp_async16(ydst, yv + (ok ? g : plane), ok ? 16 : 0);
+      dst += own_step;
+      ydst += own_step;
+      g += g_step;
+    }
+  };
+  // dx: dz = dy * 1[y > 0] * inv (or dy * inv: y is not copied) in f32,
+  // in place of dy, over the chunks this thread copied
+  auto mask = [&](int s) {
+    float* z = ring + (s % kRing) * slot + own;
+    const float* yy = yring + (s % kF32Look) * slot + own;
+    for (int row = r0; row < NB; row += rstep, z += own_step, yy += own_step) {
+      float4 g = *reinterpret_cast<const float4*>(z);
+      if (relu) {
+        const float4 q = *reinterpret_cast<const float4*>(yy);
+        g.x = q.x > 0.f ? g.x * sc.x : 0.f;
+        g.y = q.y > 0.f ? g.y * sc.y : 0.f;
+        g.z = q.z > 0.f ? g.z * sc.z : 0.f;
+        g.w = q.w > 0.f ? g.w * sc.w : 0.f;
+      } else {
+        g.x *= sc.x;
+        g.y *= sc.y;
+        g.z *= sc.z;
+        g.w *= sc.w;
+      }
+      *reinterpret_cast<float4*>(z) = g;
+    }
+  };
+  // write output plane d of r's tile from v: the forward applies inv, off
+  // and the ReLU in f32; each thread stores its pixels' two 16-byte runs
+  auto emit = [&](const float (&v)[TM][8], const F32Run& r, int d) {
+    float* o = out + (r.b * D + d) * (int64_t)N * KOUT + 4 * fg;
+    float s8[8], h8[8];
+    if constexpr (!DX) {
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const int col = 4 * fg + (f < 4 ? f : KOUT / 2 + f - 4);
+        s8[f] = cs[col];
+        h8[f] = cs[KOUT + col];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int n = r.n0 + pg + P * i;
+      if (n >= N) continue;
+      float q[8];
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        q[f] = v[i][f];
+        if constexpr (!DX) {
+          q[f] = q[f] * s8[f] + h8[f];
+          if (relu) q[f] = fmaxf(q[f], 0.f);
+        }
+      }
+      float* row = o + (int64_t)n * KOUT;
+      *reinterpret_cast<float4*>(row) = make_float4(q[0], q[1], q[2], q[3]);
+      *reinterpret_cast<float4*>(row + KOUT / 2) =
+          make_float4(q[4], q[5], q[6], q[7]);
+    }
+  };
+
+  const int tiles = (N + NB - 1) / NB;
+  const int64_t i0 = (int64_t)blockIdx.x * items / gridDim.x;
+  const int64_t i1 = ((int64_t)blockIdx.x + 1) * items / gridDim.x;
+  F32Run fc, cc;
+  bool fv = f32_begin(fc, i0, i1, D, tiles, NB);
+  bool cv = fv;
+  cc = fc;
+  // prologue: the first kF32Look planes, one commit group each
+#pragma unroll
+  for (int k = 0; k < kF32Look; ++k) {
+    if (fv) {
+      fetch(fc, k);
+      fv = f32_next(fc, i1, D, tiles, NB);
+    }
+    cp_async_commit();
+  }
+  float acc[3][TM][8];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int f = 0; f < 8; ++f) acc[t][i][f] = 0.f;
+  const float* wt = ws + 4 * fg;
+  const int wtap = kin * WS, rsP = P * rs;
+  for (int s = 0; cv; ++s) {
+    cp_async_wait<kF32Look - 1>();     // plane s has landed
+    if constexpr (DX) mask(s);
+    // every copy of plane s is visible, and every thread is done with
+    // plane s - 1, whose slot the next copy takes (the first pass also
+    // publishes the weights)
+    __syncthreads();
+    if (fv) {
+      fetch(fc, s + kF32Look);
+      fv = f32_next(fc, i1, D, tiles, NB);
+    }
+    cp_async_commit();
+
+    // tap t of input plane e feeds output plane e + 1 - t of the run
+    const int e = cc.e;
+    int m = 0;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      if (e + 1 - t >= cc.d0 && e + 1 - t < cc.d1) m |= 1 << t;
+    const float* xs = ring + (s % kRing) * slot + pg * rs;
+    // a run's first and last planes feed fewer taps: one pass per tap
+    // (each accumulator still takes one tap, channels in order)
+    if (m == 7) {
+      f32_taps<7, TM, KOUT>(xs, rsP, wt, wtap, kin, acc);
+    } else {
+      if (m & 1) f32_taps<1, TM, KOUT>(xs, rsP, wt, wtap, kin, acc);
+      if (m & 2) f32_taps<2, TM, KOUT>(xs, rsP, wt, wtap, kin, acc);
+      if (m & 4) f32_taps<4, TM, KOUT>(xs, rsP, wt, wtap, kin, acc);
+    }
+    // output e - 1 is complete; so is e at the volume's last plane
+    if (e - 1 >= cc.d0 && e - 1 < cc.d1) emit(acc[2], cc, e - 1);
+    if (e == D - 1 && e >= cc.d0 && e < cc.d1) emit(acc[1], cc, e);
+    if (cc.e < cc.hi) {                // the run goes on: shift outputs
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          acc[2][i][f] = acc[1][i][f];
+          acc[1][i][f] = acc[0][i][f];
+          acc[0][i][f] = 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int f = 0; f < 8; ++f) acc[t][i][f] = 0.f;
+    }
+    cv = f32_next(cc, i1, D, tiles, NB);
+  }
+}
+
+// ------------------------------------ fp32 weight gradient: CUDA cores
 
 constexpr int NB = 32;            // pixels per tile
 constexpr int NBP = NB + 4;       // padded shared row (keeps float4 alignment)
@@ -774,83 +1114,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
       }
       out[p] = v;
     }
-  }
-}
-
-template <int FT>
-__global__ void __launch_bounds__(kThreads)
-dtc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ inv, const float* __restrict__ off,
-               float* __restrict__ y, int D, int N, int C, int relu) {
-  constexpr int F = 4 * FT;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // [3][C][F]
-  float* xs = ws + 3 * C * F;                    // [DC + 2][C][NBP]
-  const int64_t b = blockIdx.z;
-  const int n0 = blockIdx.x * NB, d0 = blockIdx.y * DC;
-  for (int i = threadIdx.x; i < 3 * C * F; i += kThreads) ws[i] = w[i];
-  stage_rows(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2, n0);
-  __syncthreads();
-
-  const int fg = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 7,
-            pl = threadIdx.x >> 5;
-  float acc[PT][FT] = {};
-  tap_tile<FT>(xs, ws, C, pl, pg, fg, acc);
-  const int d = d0 + pl;
-  if (d >= D) return;
-  float sc[FT], sh[FT];
-#pragma unroll
-  for (int j = 0; j < FT; ++j) {
-    sc[j] = inv[fg * FT + j];
-    sh[j] = off[fg * FT + j];
-  }
-#pragma unroll
-  for (int i = 0; i < PT; ++i) {
-    const int n = n0 + pg * PT + i;
-    if (n >= N) continue;
-    float* yr = y + ((b * D + d) * N + n) * (int64_t)F + fg * FT;
-#pragma unroll
-    for (int j = 0; j < FT; ++j) {
-      float v = acc[i][j] * sc[j] + sh[j];
-      if (relu) v = fmaxf(v, 0.f);
-      yr[j] = v;
-    }
-  }
-}
-
-// dx = tap conv of dz with W'_t = W_{2-t}^T; FT = C / 4 (dx channels).
-template <int FT>
-__global__ void __launch_bounds__(kThreads)
-dtc_dx_kernel(const float* __restrict__ y, const float* __restrict__ dy,
-              const float* __restrict__ w, const float* __restrict__ inv,
-              float* __restrict__ dx, int D, int N, int F, int relu) {
-  constexpr int C = 4 * FT;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // [3][F][C]
-  float* zs = ws + 3 * C * F;                    // [DC + 2][F][NBP]
-  const int64_t b = blockIdx.z;
-  const int n0 = blockIdx.x * NB, d0 = blockIdx.y * DC;
-  for (int i = threadIdx.x; i < 3 * C * F; i += kThreads) {
-    const int t = i / (C * F), rem = i - t * C * F;
-    const int f = rem / C, c = rem - f * C;
-    ws[i] = w[(2 - t) * C * F + c * F + f];
-  }
-  stage_rows(zs, y, dy, inv, relu, b, D, N, F, d0 - 1, DC + 2, n0);
-  __syncthreads();
-
-  const int fg = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 7,
-            pl = threadIdx.x >> 5;
-  float acc[PT][FT] = {};
-  tap_tile<FT>(zs, ws, F, pl, pg, fg, acc);
-  const int d = d0 + pl;
-  if (d >= D) return;
-#pragma unroll
-  for (int i = 0; i < PT; ++i) {
-    const int n = n0 + pg * PT + i;
-    if (n >= N) continue;
-    float* r = dx + ((b * D + d) * N + n) * (int64_t)C + fg * FT;
-#pragma unroll
-    for (int j = 0; j < FT; ++j) r[j] = acc[i][j];
   }
 }
 
@@ -1032,36 +1295,6 @@ int launch_mma(const void* a, const void* yv, const void* w, const void* inv,
 }
 
 template <int FT>
-int launch_fwd(const void* x, const void* w, const void* inv, const void* off,
-               void* y, int B, int D, int N, int C, int relu,
-               cudaStream_t s) {
-  const int F = 4 * FT;
-  const size_t smem = sizeof(float) * (3 * C * F + (DC + 2) * C * NBP);
-  auto kern = dtc_fwd_kernel<FT>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((N + NB - 1) / NB, (D + DC - 1) / DC, B);
-  kern<<<grid, kThreads, smem, s>>>((const float*)x, (const float*)w,
-                                    (const float*)inv, (const float*)off,
-                                    (float*)y, D, N, C, relu);
-  return (int)cudaGetLastError();
-}
-
-template <int FT>
-int launch_dx(const void* y, const void* dy, const void* w, const void* inv,
-              void* dx, int B, int D, int N, int F, int relu,
-              cudaStream_t s) {
-  const int C = 4 * FT;
-  const size_t smem = sizeof(float) * (3 * C * F + (DC + 2) * F * NBP);
-  auto kern = dtc_dx_kernel<FT>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((N + NB - 1) / NB, (D + DC - 1) / DC, B);
-  kern<<<grid, kThreads, smem, s>>>((const float*)y, (const float*)dy,
-                                    (const float*)w, (const float*)inv,
-                                    (float*)dx, D, N, F, relu);
-  return (int)cudaGetLastError();
-}
-
-template <int FT>
 int launch_wgrad(const void* x, const void* y, const void* dy, const void* w,
                  const void* inv, float* dw, float* dco, int B, int D, int N,
                  int C, int relu, cudaStream_t s) {
@@ -1128,6 +1361,66 @@ int launch_wgrad_mma(const void* x, const void* y, const void* dy,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of the fp32 kernel at input width kin: the input
+// ring, (dx) the y slots, the weights and (forward) inv, off.
+template <bool DX, int KOUT>
+size_t f32_smem(int kin) {
+  using T = F32Tile<KOUT>;
+  const size_t slot = (size_t)T::NB * (kin + 4);
+  return sizeof(float) * ((kF32Look + 1) * slot +
+                          (DX ? kF32Look * slot : 0) +
+                          3 * (size_t)kin * T::WS + (DX ? 0 : 2 * KOUT));
+}
+
+// Blocks of an fp32 launch: one wave of `resident` blocks an SM, each
+// taking an equal contiguous run of the items; at most one an item. Every
+// output's sum runs over its taps and channels in one fixed order, so
+// the split changes no bit of the result.
+int64_t f32_blocks(int64_t items, int resident) {
+  const int64_t wave = (int64_t)resident * sm_count();
+  return items < wave ? items : wave;
+}
+
+// The launch of the fp32 kernel at (B, D, N, kin): its shared memory,
+// items and blocks.
+template <bool DX, int KOUT>
+int f32_grid(int B, int D, int N, int kin, size_t* smem, int64_t* items,
+             int64_t* blocks) {
+  auto kern = dtc_f32_kernel<DX, KOUT>;
+  static const int e = set_smem(kern, f32_smem<DX, KOUT>(64));
+  if (e) return e;
+  *smem = f32_smem<DX, KOUT>(kin);
+  static int resident_of[4] = {0, 0, 0, 0};          // by kin 8 .. 64
+  int& resident = resident_of[kin == 8 ? 0 : kin == 16 ? 1 : kin == 32 ? 2 : 3];
+  if (!resident) {
+    int n = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kF32Threads,
+                                                  *smem);
+    resident = n < 1 ? 1 : n;
+  }
+  *items = (int64_t)B * ((N + F32Tile<KOUT>::NB - 1) / F32Tile<KOUT>::NB) * D;
+  *blocks = f32_blocks(*items, resident);
+  return 0;
+}
+
+// fp32 on CUDA cores: forward (DX false; a = x, kin = C, KOUT = F) or dx
+// (DX true; a = dy, yv = y, kin = F, KOUT = C)
+template <bool DX, int KOUT>
+int launch_f32(const void* a, const void* yv, const void* w, const void* inv,
+               const void* off, void* out, int B, int D, int N, int kin,
+               int relu, cudaStream_t s) {
+  if (!aligned16(a) || !aligned16(out) || (DX && !aligned16(yv)))
+    return EDS_ERR_UNSUPPORTED;
+  size_t smem;
+  int64_t items, blocks;
+  if (int e = f32_grid<DX, KOUT>(B, D, N, kin, &smem, &items, &blocks))
+    return e;
+  dtc_f32_kernel<DX, KOUT><<<(unsigned)blocks, kF32Threads, smem, s>>>(
+      (const float*)a, (const float*)yv, (const float*)w, (const float*)inv,
+      (const float*)off, (float*)out, D, N, kin, relu, items);
+  return (int)cudaGetLastError();
+}
+
 // fn(std::integral_constant<int, ch>) for a channel count in {8, 16, 32, 64}
 template <class Fn>
 int with_width(int ch, Fn&& fn) {
@@ -1148,12 +1441,13 @@ bool channels_ok(int c) {
 }  // namespace
 
 // x (B, D, N, C), w (3, C, F), inv/off (F,) -> y (B, D, N, F); all in the
-// same dtype. C, F in {8, 16, 32, 64}; bf16 pointers 16-byte aligned.
+// same dtype. C, F in {8, 16, 32, 64}; x and y 16-byte aligned (and w in
+// bf16).
 extern "C" int dtc_forward(int dtype, const void* x, const void* w,
                            const void* inv, const void* off, void* y, int B,
                            int D, int N, int C, int F, int relu,
                            void* stream) {
-  if (!channels_ok(C)) return EDS_ERR_UNSUPPORTED;
+  if (!width_ok(C) || !width_ok(F)) return EDS_ERR_UNSUPPORTED;
   if ((int64_t)B * D * N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == EDS_DTYPE_BF16) {
@@ -1162,17 +1456,18 @@ extern "C" int dtc_forward(int dtype, const void* x, const void* w,
   }
   if (dtype != EDS_DTYPE_F32) return EDS_ERR_UNSUPPORTED;
   return with_width(F, [&](auto f) {
-    return launch_fwd<decltype(f)::value / 4>(x, w, inv, off, y, B, D, N, C,
-                                               relu, s);
+    return launch_f32<false, decltype(f)::value>(x, nullptr, w, inv, off, y,
+                                                 B, D, N, C, relu, s);
   });
 }
 
-// dx (B, D, N, C) from y, dy (B, D, N, F). C, F in {8, 16, 32, 64}.
+// dx (B, D, N, C) from y, dy (B, D, N, F). C, F in {8, 16, 32, 64}; y,
+// dy and dx 16-byte aligned (and w in bf16).
 extern "C" int dtc_backward_dx(int dtype, const void* y, const void* dy,
                                const void* w, const void* inv, void* dx,
                                int B, int D, int N, int C, int F, int relu,
                                void* stream) {
-  if (!channels_ok(F)) return EDS_ERR_UNSUPPORTED;
+  if (!width_ok(C) || !width_ok(F)) return EDS_ERR_UNSUPPORTED;
   if ((int64_t)B * D * N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == EDS_DTYPE_BF16) {
@@ -1181,8 +1476,26 @@ extern "C" int dtc_backward_dx(int dtype, const void* y, const void* dy,
   }
   if (dtype != EDS_DTYPE_F32) return EDS_ERR_UNSUPPORTED;
   return with_width(C, [&](auto c) {
-    return launch_dx<decltype(c)::value / 4>(y, dy, w, inv, dx, B, D, N, F,
-                                              relu, s);
+    return launch_f32<true, decltype(c)::value>(dy, y, w, inv, nullptr, dx,
+                                                B, D, N, F, relu, s);
+  });
+}
+
+// The fp32 launch of the forward (dx = 0) or dx at (B, D, N, C, F), for
+// the checks at the kernels' edges: its pixel tile (what = 0) or its
+// blocks (what = 1); -1 for widths the kernels do not take.
+extern "C" int dtc_f32_geometry(int what, int dx, int B, int D, int N, int C,
+                                int F) {
+  if (!width_ok(C) || !width_ok(F)) return -1;
+  return with_width(dx ? C : F, [&](auto k) {
+    constexpr int KOUT = decltype(k)::value;
+    if (what == 0) return F32Tile<KOUT>::NB;
+    size_t smem;
+    int64_t items, blocks;
+    const int e =
+        dx ? f32_grid<true, KOUT>(B, D, N, F, &smem, &items, &blocks)
+           : f32_grid<false, KOUT>(B, D, N, C, &smem, &items, &blocks);
+    return e ? -1 : (int)blocks;
   });
 }
 

@@ -8,7 +8,8 @@ is rebuilt at its next use. `build_all()` starts one nvcc per source at
 once; otherwise a library is built at the first launch that needs it.
 
 Each launcher returns a CUDA status; `launch` raises on anything but 0.
-`query` calls a launcher's size function (a workspace's bytes).
+`query` calls a launcher's size function (a workspace's bytes, a launch's
+geometry).
 `launches` counts the launches of each kernel, `launch_shapes` the
 launches of each (kernel, shape, dtype) and `launch_widths` those of each
 (kernel, access width in bytes) where a wrapper picks the width;
@@ -50,8 +51,9 @@ SIGNATURES = {
                             _P),
         "dtc_backward_w": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P),
-        # a size query (no stream; it returns the size, not a status)
+        # size queries (no stream; they return the size, not a status)
         "dtc_wgrad_workspace_bytes": (_I, _I, _I, _I, _I),
+        "dtc_f32_geometry": (_I, _I, _I, _I, _I, _I, _I),
     },
 }
 

@@ -18,10 +18,14 @@ bf16 (the attack path) runs the forward and dx on tensor cores
 (mma.sync fed by cp.async, one block walking the planes of a pixel
 tile); dx forms dz = bf16(dy * 1[y > 0] * inv) as the TPU kernel does,
 one rounding more than the plain version, which keeps dz in f32. fp32
-runs on CUDA-core f32 FMAs, so the tiny model matches the CPU closely.
-The bf16 kernels copy 16-byte chunks, so a bf16 input whose view starts
-off a 16-byte boundary is first copied (counted in `_cuda.align_copies`;
-the model's inputs never need it).
+(the fp32 card-vs-CPU checks) runs the forward and dx on CUDA-core f32
+FMAs, TF32 nowhere: one kernel walks a run of planes of a pixel tile
+through a cp.async ring, each thread holding three output planes'
+accumulators, so each staged plane is read once; dx forms dz = dy *
+1[y > 0] * inv in f32. Every output is summed in one fixed order, so
+two calls give the same bits. The kernels copy 16-byte chunks, so an
+input whose view starts off a 16-byte boundary is first copied (counted
+in `_cuda.align_copies`; the model's inputs never need it).
 
 The backward always computes dx; dW and the coefficient gradients run
 only when autograd asks for them, which the attack never does and
@@ -53,9 +57,9 @@ CHANNELS = (8, 16, 32, 64)
 
 
 def _aligned(t):
-    """t, or, for the bf16 kernels' 16-byte copies, a copy of it where its
-    data does not start on 16 bytes; `_cuda.align_copies` counts each."""
-    if t.dtype != torch.bfloat16 or t.data_ptr() % 16 == 0:
+    """t, or, for the kernels' 16-byte copies, a copy of it where its data
+    does not start on 16 bytes; `_cuda.align_copies` counts each."""
+    if t.data_ptr() % 16 == 0:
         return t
     _cuda.align_copies["depth_tap_conv"] += 1
     return t.clone()
@@ -99,6 +103,18 @@ def reference_depth_tap_conv_wgrad(x4, y, dy, w, inv, relu: bool = True):
     dw = g * inv.float()
     dinv = (w.float() * g).sum(dim=(0, 1))
     return dw, dinv, dm.sum(dim=(0, 1, 2))
+
+
+def f32_geometry(b, d, n, c, f, dx=False):
+    """(pixel tile, blocks) of the fp32 forward's (or dx's) launch at
+    (B, D, N, C, F): the launch cuts B x tiles x D items into one equal
+    contiguous run a block. For the checks at the kernels' edges."""
+    tile, blocks = (_cuda.query("depth_tap_conv", "dtc_f32_geometry", what,
+                                int(dx), b, d, n, c, f) for what in (0, 1))
+    if tile < 0 or blocks < 0:
+        raise ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels take "
+                         f"channel counts in {CHANNELS}")
+    return tile, blocks
 
 
 def wgrad_workspace_bytes(b, d, n, c, f) -> int:

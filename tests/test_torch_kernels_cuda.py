@@ -7,7 +7,9 @@ card. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports no JAX
 fp32 with TF32 off. Tolerances: forward atol 1e-5 (the same f32
 arithmetic, with FMA contraction), gradients atol 1e-4 (summed over the
 planes in another order, fp32 dW/d inv/d off over the whole grid with
-atomics). The depth-tap conv and the PSV warp are also held in bf16, at
+atomics); the fp32 depth-tap conv forward and dx at their tiles' edges
+within 1e-5 x the largest magnitude, bit for bit from call to call. The
+depth-tap conv and the PSV warp are also held in bf16, at
 2^-7 x the largest reference magnitude (one bf16 rounding step of either
 side); the bf16 weight gradient also against its plain G-form version
 and bit for bit from call to call.
@@ -203,6 +205,44 @@ def test_depth_tap_conv_kernels_match_plain(dev, d, hw, c, f, dtype, relu):
         before["depth_tap_conv_wgrad"] + 1
     for kernel in ("depth_tap_conv_bwd", "depth_tap_conv_wgrad"):
         assert _cuda.launch_shapes[(kernel, (2, d, n, c, f), dtype)] >= 1
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("b,d,n,c,f", [
+    # the fp32 kernels' edges: N one past their 128-pixel tile (output
+    # widths up to 32) or 64-pixel tile (64); D of 1, 2, 3, 13; C != F;
+    # B = 2; runs of planes that cross tiles (D = 40 over 21 tiles) and
+    # D = 1 over more tiles than one wave of blocks
+    (1, 1, 129, 32, 32), (2, 2, 65, 64, 64), (1, 3, 129, 16, 8),
+    (1, 13, 65, 64, 32), (2, 13, 129, 8, 16), (1, 5, 257, 32, 64),
+    (1, 2, 1, 8, 8), (2, 40, 2561, 32, 32), (1, 1, 60000, 32, 32)])
+def test_depth_tap_conv_fp32_edges_bit_for_bit(dev, b, d, n, c, f, relu):
+    # forward and dx within 1e-5 x the plain version's largest magnitude
+    # (dx against the plain VJP under the kernel's own ReLU mask), and two
+    # calls give the same bits
+    rng = np.random.RandomState(n + d)
+    x = torch.from_numpy((rng.randn(b, d, n, 1, c) * 0.5).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, c, f) / c ** 0.5).astype(np.float32))
+    inv = torch.from_numpy((rng.randn(f) * 0.2 + 1.0).astype(np.float32))
+    off = torch.from_numpy((rng.randn(f) * 0.1).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(b, d, n, 1, f).astype(np.float32))
+    xk = x.to(dev).requires_grad_(True)
+    args = [t.to(dev) for t in (w, inv, off)]
+    y = depth_tap_conv(xk, *args, relu=relu)
+    (dx,) = torch.autograd.grad(y, xk, dy.to(dev), retain_graph=True)
+    (dx2,) = torch.autograd.grad(y, xk, dy.to(dev))
+    y2 = depth_tap_conv(xk.detach(), *args, relu=relu)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+    xp = x.clone().requires_grad_(True)
+    want = reference_depth_tap_conv(xp, w, inv, off, relu=relu)
+    scale = float(want.detach().abs().max())
+    torch.testing.assert_close(y.detach().cpu(), want.detach(),
+                               atol=1e-5 * scale, rtol=0)
+    gm = dy * (y.detach().cpu() > 0) if relu else dy
+    lin = reference_depth_tap_conv(xp, w, inv, off, relu=False)
+    (want_dx,) = torch.autograd.grad(lin, xp, gm)
+    torch.testing.assert_close(dx.cpu(), want_dx,
+                               atol=1e-5 * float(want_dx.abs().max()), rtol=0)
 
 
 @pytest.mark.parametrize("needs", ["x", "weights", "all"])

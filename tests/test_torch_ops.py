@@ -26,7 +26,8 @@ from eval_driving_safety_tpu_torch.models.common import (resize_bilinear,
 from eval_driving_safety_tpu_torch.models.dsgn import ConvBnRelu2p1D
 from eval_driving_safety_tpu_torch.ops import _cuda
 from eval_driving_safety_tpu_torch.ops.cost_volume import shift_along_width
-from eval_driving_safety_tpu_torch.ops.depthconv import depth_tap_conv
+from eval_driving_safety_tpu_torch.ops.depthconv import (_aligned,
+                                                         depth_tap_conv)
 from eval_driving_safety_tpu_torch.ops.psv_warp import build_psv, psv_warp
 from eval_driving_safety_tpu_torch.utils.from_flax import \
     dsgn_state_dict_from_flax
@@ -102,22 +103,37 @@ def test_build_psv_matches_pallas_forward_and_grads():
 
 # ---------------------------------------------------------- (b) depth conv
 
-def _dtc_inputs(d, c, f, seed=0):
+def _dtc_inputs(d, c, f, seed=0, hw=(4, 8)):
     rng = np.random.RandomState(seed)
-    x = (rng.randn(2, d, 4, 8, c) * 0.5).astype(np.float32)
+    x = (rng.randn(2, d, *hw, c) * 0.5).astype(np.float32)
     wk = (rng.randn(3, c, f) * 0.2).astype(np.float32)
     inv = (rng.randn(f) * 0.5 + 1.0).astype(np.float32)
     off = (rng.randn(f) * 0.2).astype(np.float32)
-    g = rng.randn(2, d, 4, 8, f).astype(np.float32)
+    g = rng.randn(2, d, *hw, f).astype(np.float32)
     return x, wk, inv, off, g
 
 
+# (D, C, F, (H, W)) at B = 2: D of 1, 2, 6, and the fp32 kernels' edges,
+# which the card checks hold against this plain version: D = 13 (runs of
+# planes across blocks), C != F at widths 8-64, N = 136 and 72 ragged
+# against their 128- and 64-pixel tiles (the TPU kernel takes N in
+# multiples of 8)
+DTC_CASES = [
+    pytest.param(1, 8, 16, (4, 8), id="1"),
+    pytest.param(2, 8, 16, (4, 8), id="2"),
+    pytest.param(6, 8, 16, (4, 8), id="6"),
+    pytest.param(13, 64, 32, (8, 17), id="13-c64-f32-n136"),
+    pytest.param(13, 8, 16, (8, 9), id="13-c8-f16-n72"),
+    pytest.param(3, 32, 64, (8, 9), id="3-c32-f64-n72"),
+]
+
+
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("d", [1, 2, 6])
-def test_depth_tap_conv_matches_pallas(monkeypatch, d, relu):
+@pytest.mark.parametrize("d,c,f,hw", DTC_CASES)
+def test_depth_tap_conv_matches_pallas(monkeypatch, d, c, f, hw, relu):
     # the JAX package runs its Pallas kernel in interpret mode off-TPU
     monkeypatch.setattr(jdtc, "_FORCE_INTERPRET", True)
-    x, wk, inv, off, g = _dtc_inputs(d, 8, 16, seed=d)
+    x, wk, inv, off, g = _dtc_inputs(d, c, f, seed=d, hw=hw)
     args = [jnp.asarray(a) for a in (x, wk, inv, off)]
     want = _np(jdtc.depth_tap_conv(*args, relu))
     want_g = jax.grad(lambda *a: jnp.sum(jdtc.depth_tap_conv(*a, relu) * g),
@@ -129,6 +145,23 @@ def test_depth_tap_conv_matches_pallas(monkeypatch, d, relu):
     for name, a, b in zip(("dx", "dW", "d inv", "d off"), got_g, want_g):
         np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depth_tap_conv_copies_only_views_off_16_bytes(dtype):
+    # the kernels copy 16-byte chunks: a view whose data starts off a
+    # 16-byte boundary is copied once, counted; an aligned one is not
+    _cuda.reset_launches()
+    buf = torch.arange(1 + 2 * 3 * 8, dtype=torch.float32).to(dtype)
+    aligned = buf[:48].view(2, 3, 8)
+    assert aligned.data_ptr() % 16 == 0
+    assert _aligned(aligned) is aligned and not _cuda.align_copies
+    off = buf[1:].view(2, 3, 8)
+    assert off.data_ptr() % 16 != 0
+    got = _aligned(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+    assert _cuda.align_copies == {"depth_tap_conv": 1}
+    _cuda.reset_launches()
 
 
 # ------------------------------------------------- (c) resizes and blocks
