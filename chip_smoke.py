@@ -17,9 +17,11 @@ Phases (any failure ends the run with a non-zero exit):
      queued behind a sleep kernel, utils/cuda_timing.py); hold the
      depth-tap conv (forward and dx) in bf16 and fp32 at the edges of
      its kernels' tiles and runs of planes, the fp32 kernels bit for bit
-     from call to call, and on misaligned views; time the
-     weight-gradient kernel alone (not on the attack path; phase 5 runs
-     it in training); hold K1 and K2
+     from call to call, and on misaligned views; hold and time the
+     weight gradient alone (not on the attack path; phase 5 runs it in
+     training), in bf16 and fp32 bit for bit from call to call, also at
+     the edges of its split (N one past the pixel tile, slices that
+     start or end inside a tile's run of planes); hold K1 and K2
      (forward and backward PSV warp) at the edges of their design: other
      channel counts and access widths, ragged and long rows, per-image
      and out-of-range disparities, the unfused warp, misaligned views and
@@ -28,6 +30,9 @@ Phases (any failure ends the run with a non-zero exit):
      of phase 16 (bf16);
   3. run the tiny model in fp32 on the card and on the CPU with the same
      weights and inputs and compare the loss and the input gradients;
+     then a training loss's every parameter gradient (1e-3 x each
+     tensor's largest magnitude), two identical card steps bit for bit,
+     each launching the fp32 weight gradient 8 times;
   4. run the attack CLI at --scale paper on two seeded KITTI-layout frames
      (3 iterations), check the output sweep, that the kernels were
      launched at the shapes phase 2 checked, K1 and K2 with 16-byte
@@ -214,9 +219,9 @@ Phases (any failure ends the run with a non-zero exit):
      1,250 every 250, up to 2,500), held to
      tests/test_srcnn_end_to_end.py's five conditions (clean score >=
      0.5, IoU > 0.3, the attack's loss up by 10, within eps, the attacked
-     score down by 0.1); (b) its first 100 steps again: the losses and
+     score down by 0.1); (b) its first 50 steps again: the losses and
      the weights' SHA-256 the same bits; (c) at StereoRCNNConfig()
-     capped at 250 steps, probed at the cap and attacked: finite losses,
+     capped at 50 steps, probed at the cap and attacked: finite losses,
      the loss below step 0's, the attack ascending within eps (the probe
      and both scores printed); (d) the launch counts unchanged;
      `srcnn_demo`: each story's losses at its logged steps and probes,
@@ -512,8 +517,8 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad, shapes=None):
             e = compare(f"depth_tap_conv_bwd {name} {tag}", a, p_, rt)
             e_w = e_w if name == "dx" else max(e_w, e)
         # the weight-gradient kernel alone (x needs no gradient), also
-        # against its plain G-form version under the kernel's forward and,
-        # in bf16, bit for bit from one call to the next
+        # against its plain G-form version under the kernel's forward and
+        # bit for bit from one call to the next
         kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
         pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
         yk_w = depth_tap_conv(x, *kw)
@@ -524,10 +529,9 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad, shapes=None):
         for name, a, r in zip(("dW", "d inv", "d off"), kgw, ref_w):
             e_w = max(e_w, compare(f"depth_tap_conv_wgrad {name} vs G form "
                                    f"{tag}", a, r, RTOL_GRID[dtype_name]))
-        if dtype_name == "bfloat16":
-            again = torch.autograd.grad(yk_w, kw, dy, retain_graph=True)
-            check(all(torch.equal(a, b) for a, b in zip(kgw, again)),
-                  f"depth_tap_conv_wgrad {tag}: two calls differ")
+        again = torch.autograd.grad(yk_w, kw, dy, retain_graph=True)
+        check(all(torch.equal(a, b) for a, b in zip(kgw, again)),
+              f"depth_tap_conv_wgrad {tag}: two calls differ")
 
         # library yardsticks: the conv alone, as cuDNN computes it
         xc = x.permute(0, 4, 1, 2, 3)                   # (B, C, D, N, 1)
@@ -568,7 +572,7 @@ def check_depthconv(cfg, dtype_name, dev, per, wgrad, shapes=None):
         # sum_k W G over the same sums G as dW, so the operations are one
         # conv's
         wgrad[("depth_tap_conv_wgrad", shape, dtype_name)] = dict(
-            err=e_w, **t_w,
+            err=e_w, **t_w, bit_for_bit=True,
             bytes=(2 * vol_out + vol_in) * isz + small + (3 * c + 2) * f * 4,
             ops=conv_ops)
         del yk, yp, yp_relu, yk_all, yp_all, yk_w, yp_w
@@ -676,59 +680,82 @@ def check_depthconv_edges(dev):
         log(json.dumps({f"depthconv_{short}_edges": rec}))
 
 
+# (B, D, N, C, F) of the weight gradient's edge checks, per dtype: N
+# ragged against the pixel tile (64 in bf16; in fp32 128 at (8, 16), 32
+# at width 64, 64 at (32, 32), 256 at (8, 8): one past it), D of 1, 2, 3,
+# 13, B = 2, C != F, widths of 8, and slices that start or end inside a
+# tile's run of planes
+WGRAD_EDGES = {
+    "bfloat16": [(2, 1, 65, 8, 16), (2, 2, 35, 16, 8), (2, 3, 1000, 8, 16),
+                 (2, 13, 130, 16, 8), (2, 13, 97, 64, 32),
+                 (2, 2, 2561, 32, 64), (2, 3, 4097, 64, 8)],
+    "float32": [(2, 1, 129, 8, 16), (2, 2, 33, 64, 32), (2, 3, 1000, 8, 16),
+                (2, 13, 130, 16, 8), (2, 13, 97, 64, 32), (1, 13, 65, 32, 32),
+                (2, 2, 2561, 32, 64), (2, 3, 4097, 64, 8), (1, 1, 257, 8, 8)],
+}
+
+
 def check_depthconv_wgrad_edges(dev):
-    """The bf16 weight gradient (split-K GEMM + ordered reduction) at the
-    edges of its design, against its plain G-form version and the plain
-    VJP under the kernel's own forward, and bit for bit from one call to
-    the next: N ragged against the 64-pixel tile, D of 1, 2, 3, 13, B = 2,
-    C != F, widths of 8, ReLU on and off, and slices that start or end
-    inside a tile's run of planes (checked from the kernel's own
-    workspace size)."""
+    """The weight gradient (split-K GEMM + ordered reduction), in bf16 and
+    fp32, at the edges of its design (`WGRAD_EDGES`), against its plain
+    G-form version and the plain VJP under the kernel's own forward, and
+    bit for bit from one call to the next: N ragged against the pixel
+    tile, D of 1, 2, 3, 13, B = 2, C != F, widths of 8, ReLU on and off,
+    and slices that start or end inside a tile's run of planes (checked
+    from the kernel's own tile and workspace size)."""
     import torch
     from eval_driving_safety_tpu_torch.ops.depthconv import (
         depth_tap_conv, reference_depth_tap_conv,
-        reference_depth_tap_conv_wgrad, wgrad_workspace_bytes)
-    dt, rtol = torch.bfloat16, RTOL_GRID["bfloat16"]
-    g = torch.Generator(device=dev).manual_seed(3)
-    cases = [(2, 1, 65, 8, 16), (2, 2, 35, 16, 8), (2, 3, 1000, 8, 16),
-             (2, 13, 130, 16, 8), (2, 13, 97, 64, 32), (2, 2, 2561, 32, 64),
-             (2, 3, 4097, 64, 8)]
-    worst, mid = 0.0, 0
-    for b, d, n, c, f in cases:
-        items = b * -(-n // 64) * d
-        slices = wgrad_workspace_bytes(b, d, n, c, f) // (4 * f * (3 * c + 1))
-        mid += any(s * items // slices % d for s in range(slices))
-        x = (torch.randn(b, d, n, 1, c, device=dev, generator=g) * 0.5).to(dt)
-        w = (torch.randn(3, c, f, device=dev, generator=g) / c ** 0.5).to(dt)
-        inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
-        off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
-        dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
-        for relu in (True, False):
-            tag = f"{(b, d, n, c, f)} relu={relu} bfloat16"
-            kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
-            pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
-            y = depth_tap_conv(x, *kw, relu)
-            kg = torch.autograd.grad(y, kw, dy, retain_graph=True)
-            again = torch.autograd.grad(y, kw, dy)
-            check(all(torch.equal(a, b_) for a, b_ in zip(kg, again)),
-                  f"depth_tap_conv_wgrad edge {tag}: two calls differ")
-            ref = reference_depth_tap_conv_wgrad(
-                x[:, :, :, 0], y.detach()[:, :, :, 0], dy[:, :, :, 0], w, inv,
-                relu)
-            dm = dy * (y.detach() > 0) if relu else dy
-            yl = reference_depth_tap_conv(x, *pw, relu=False)
-            vjp = torch.autograd.grad(yl, pw, dm)
-            for name, a, r, v in zip(("dW", "d inv", "d off"), kg, ref, vjp):
-                compare(f"depth_tap_conv_wgrad edge {name} {tag}", a, r, rtol)
-                compare(f"depth_tap_conv_wgrad edge {name} vjp {tag}", a, v,
-                        rtol)
-                worst = max(worst, max_err(a, r) / max(
-                    float(r.float().abs().max()), 1e-30))
-    check(mid >= 3, f"only {mid} wgrad edge cases split a tile's planes")
-    log(json.dumps({"depthconv_wgrad_bf16_edges": {
-        "cases": len(cases) * 2, "cases_with_slices_mid_tile": mid,
-        "max_err_over_max_ref": worst, "rtol": rtol,
-        "bit_for_bit_repeats": True}}))
+        reference_depth_tap_conv_wgrad, wgrad_geometry)
+    for dtype_name, seed in (("bfloat16", 3), ("float32", 7)):
+        dt, rtol = getattr(torch, dtype_name), RTOL_GRID[dtype_name]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cases = WGRAD_EDGES[dtype_name]
+        worst, mid, past = 0.0, 0, 0
+        for b, d, n, c, f in cases:
+            tile, slices = wgrad_geometry(b, d, n, c, f, dt)
+            items = b * -(-n // tile) * d
+            mid += any(s * items // slices % d for s in range(slices))
+            past += n % tile == 1
+            x = (torch.randn(b, d, n, 1, c, device=dev, generator=g)
+                 * 0.5).to(dt)
+            w = (torch.randn(3, c, f, device=dev, generator=g)
+                 / c ** 0.5).to(dt)
+            inv = (1 + 0.2 * torch.randn(f, device=dev, generator=g)).to(dt)
+            off = (0.1 * torch.randn(f, device=dev, generator=g)).to(dt)
+            dy = torch.randn(b, d, n, 1, f, device=dev, generator=g).to(dt)
+            for relu in (True, False):
+                tag = f"{(b, d, n, c, f)} relu={relu} {dtype_name}"
+                kw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+                pw = [t.clone().requires_grad_(True) for t in (w, inv, off)]
+                y = depth_tap_conv(x, *kw, relu)
+                kg = torch.autograd.grad(y, kw, dy, retain_graph=True)
+                again = torch.autograd.grad(y, kw, dy)
+                check(all(torch.equal(a, b_) for a, b_ in zip(kg, again)),
+                      f"depth_tap_conv_wgrad edge {tag}: two calls differ")
+                ref = reference_depth_tap_conv_wgrad(
+                    x[:, :, :, 0], y.detach()[:, :, :, 0], dy[:, :, :, 0], w,
+                    inv, relu)
+                dm = dy * (y.detach() > 0) if relu else dy
+                yl = reference_depth_tap_conv(x, *pw, relu=False)
+                vjp = torch.autograd.grad(yl, pw, dm)
+                for name, a, r, v in zip(("dW", "d inv", "d off"), kg, ref,
+                                         vjp):
+                    compare(f"depth_tap_conv_wgrad edge {name} {tag}", a, r,
+                            rtol)
+                    compare(f"depth_tap_conv_wgrad edge {name} vjp {tag}", a,
+                            v, rtol)
+                    worst = max(worst, max_err(a, r) / max(
+                        float(r.float().abs().max()), 1e-30))
+        check(mid >= 3, f"only {mid} {dtype_name} wgrad edge cases split a "
+              "tile's planes")
+        check(past >= 1, f"no {dtype_name} wgrad edge case has N one past "
+              "its pixel tile")
+        short = {"bfloat16": "bf16", "float32": "fp32"}[dtype_name]
+        log(json.dumps({f"depthconv_wgrad_{short}_edges": {
+            "cases": len(cases) * 2, "cases_with_slices_mid_tile": mid,
+            "cases_one_past_tile": past, "max_err_over_max_ref": worst,
+            "rtol": rtol, "bit_for_bit_repeats": True}}))
 
 
 def edge_disparities(b, w, dev):
@@ -1392,42 +1419,100 @@ def training(tmp, dev, timed_shapes):
     return launches, counts
 
 
-def train_grads_bit_for_bit(cfg, dev, batch):
-    """Every parameter gradient of two identical training steps (the
-    weights of `init_weights(0)`, one batch) compared by torch.equal, with
-    library kernels in deterministic mode as the training CLI sets it."""
+def step_grads(cfg, dev, batch):
+    """Every parameter gradient of one training loss of `DSGN(cfg)` with
+    the weights of `init_weights(0)` on `batch` (on `dev`)."""
     import torch
-    from eval_driving_safety_tpu_torch.cli.common import \
-        use_deterministic_kernels
     from eval_driving_safety_tpu_torch.data.dataset import u8_to_01
     from eval_driving_safety_tpu_torch.models.dsgn import DSGN
     from eval_driving_safety_tpu_torch.models.rpn3d_loss import \
         dsgn_total_loss
-    from eval_driving_safety_tpu_torch.ops import _cuda
-    use_deterministic_kernels(dev)
     mean = torch.tensor(cfg.input.mean, device=dev)
     std = torch.tensor(cfg.input.std, device=dev)
     il, ir, calib, depth, boxes, nb = batch
+    model = DSGN(cfg).init_weights(0).to(dev)
+    out = model((u8_to_01(il) - mean) / std, (u8_to_01(ir) - mean) / std,
+                *calib)
+    dsgn_total_loss(out, depth, boxes, nb, cfg)[0].backward()
+    return {k: p.grad for k, p in model.named_parameters()
+            if p.grad is not None}
 
-    def grads():
-        model = DSGN(cfg).init_weights(0).to(dev)
-        out = model((u8_to_01(il) - mean) / std, (u8_to_01(ir) - mean) / std,
-                    *calib)
-        dsgn_total_loss(out, depth, boxes, nb, cfg)[0].backward()
-        return {k: p.grad for k, p in model.named_parameters()
-                if p.grad is not None}
 
-    _cuda.reset_launches()
-    a = grads()
-    check(_cuda.launches["depth_tap_conv_wgrad"] == 8,
-          f"a training step launched the weight gradient "
-          f"{_cuda.launches['depth_tap_conv_wgrad']} times, not 8")
-    b = grads()
+def train_grads_bit_for_bit(cfg, dev, batch):
+    """Every parameter gradient of two identical training steps (the
+    weights of `init_weights(0)`, one batch) compared by torch.equal, with
+    library kernels in deterministic mode as the training CLI sets it;
+    each step must launch the weight gradient 8 times in `cfg`'s dtype.
+    Returns the first step's gradients."""
+    import torch
+    from eval_driving_safety_tpu_torch.cli.common import \
+        use_deterministic_kernels
+    from eval_driving_safety_tpu_torch.ops import _cuda
+    use_deterministic_kernels(dev)
+    steps = []
+    for _ in range(2):
+        _cuda.reset_launches()
+        steps.append(step_grads(cfg, dev, batch))
+        n = sum(v for (k, _, dt), v in _cuda.launch_shapes.items()
+                if k == "depth_tap_conv_wgrad" and dt == cfg.dtype)
+        check(_cuda.launches["depth_tap_conv_wgrad"] == n == 8,
+              f"a training step launched the {cfg.dtype} weight gradient "
+              f"{n} times ({_cuda.launches['depth_tap_conv_wgrad']} in "
+              "all), not 8")
+    a, b = steps
     differ = sorted(k for k in a if not torch.equal(a[k], b.get(k)))
     check(set(a) == set(b) and not differ,
           f"two identical training steps: gradients differ in {differ[:6]}")
     log(json.dumps({"train_grads_bit_for_bit": {
-        "parameters": len(a), "equal": True}}))
+        "dtype": cfg.dtype, "parameters": len(a), "equal": True,
+        "wgrad_launches_per_step": 8}}))
+    return a
+
+
+def tiny_param_grads_card_vs_cpu(dev):
+    """The tiny DSGN in fp32 (TF32 off): two identical training steps on
+    the card give every parameter gradient bit for bit, each launching
+    the fp32 weight gradient 8 times (`train_grads_bit_for_bit`), and
+    every gradient is within 1e-3 x its largest magnitude of the CPU's
+    (the same arithmetic summed in other orders through ~40 layers); a
+    Score3D bias, whose gradient is 0 up to rounding (the softmax over
+    planes cancels it), against its weight's, as
+    tests/test_torch_kernels_cuda.py holds it."""
+    import numpy as np
+    import torch
+    from eval_driving_safety_tpu_torch.config import DSGNConfig, replace
+    cfg = replace(DSGNConfig.tiny(), dtype="float32")
+    rng = np.random.RandomState(0)
+    hw = (cfg.input.height, cfg.input.width)
+    il = rng.randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    ir = np.roll(il, -6, axis=2)
+    depth = np.where(rng.rand(1, *hw) < 0.5,
+                     rng.uniform(1.0, 70.0, (1, *hw)), 0.0).astype(np.float32)
+    boxes = np.zeros((1, 4, 8), np.float32)
+    boxes[0, 0] = [2.0, 1.6, 18.0, 1.5, 1.7, 4.0, 0.4, 1.0]
+
+    def batch(device):
+        t = lambda a: torch.as_tensor(a).to(device)
+        return (t(il), t(ir), [t(np.full((1,), v, np.float32))
+                               for v in (180.0, 0.54, 160.0, 48.0)],
+                t(depth), t(boxes), t(np.array([1])))
+
+    card = train_grads_bit_for_bit(cfg, dev, batch(dev))
+    cpu = step_grads(cfg, torch.device("cpu"), batch("cpu"))
+    check(set(card) == set(cpu), "tiny fp32 step: card and CPU gradients "
+          "of other parameters")
+    worst = 0.0
+    for name, want in cpu.items():
+        ref = name.replace(".bias", ".weight") \
+            if name.startswith("depth_score") else name
+        scale = max(float(cpu[ref].abs().max()), 1e-30)
+        err = max_err(card[name].cpu(), want) / scale
+        check(err <= 1e-3, f"tiny fp32 gradient of {name} card vs cpu: "
+              f"{err:.3g} x its largest magnitude")
+        worst = max(worst, err)
+    log(json.dumps({"tiny_param_grads_card_vs_cpu": {
+        "parameters": len(cpu), "max_err_over_max": worst, "rtol": 1e-3,
+        "bit_for_bit_steps": True}}))
 
 
 def train_steady_state(cfg, dev, card):
@@ -5612,11 +5697,13 @@ def demo_phase(dev, card, per_step, per_iter, held):
 # the Stereo R-CNN story: the driver's schedule at the tiny config (up to
 # step index 2,500, probes from 1,250 every 250), the determinism rerun's
 # steps, and the full-width story's cap. A full-width fp32 step takes
-# about 353 ms on the H100 (a probe about 146 ms, a PGD iteration about
-# 265 ms): 250 steps keep phase 17 near 250 s with the tiny story's ~130.
+# 353-478 ms on the H100 (a probe 146-195 ms, a PGD iteration 265-326
+# ms), a tiny one 119-184 ms, as the host allows: 50 full-width steps
+# keep phase 17 near 280 s at the slow end, the tiny story's 1,250 steps
+# ~230 s of it.
 SRCNN_DEMO_STEPS = 2500
-SRCNN_RERUN_STEPS = 100
-SRCNN_DEMO_CAP = 250
+SRCNN_RERUN_STEPS = 50
+SRCNN_DEMO_CAP = 50
 
 
 def srcnn_demo_phase(dev, card, steps=SRCNN_DEMO_STEPS,
@@ -6160,8 +6247,11 @@ def main():
     torch.cuda.empty_cache()
     lap("2_kernels")
 
-    # 3. tiny model: card vs CPU
+    # 3. tiny model: card vs CPU (input gradients; every parameter
+    # gradient, the fp32 weight gradient's 8 launches, two steps bit for
+    # bit)
     tiny_card_vs_cpu(dev)
+    tiny_param_grads_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     lap("3_tiny_card_vs_cpu")
 
@@ -6247,7 +6337,10 @@ def main():
     log(json.dumps({"kernel_wgrad_paper_shapes": {
         dt: dict(max_abs_err=r["err"], **{m: r[m] for m in TIME_KEYS},
                  bound_ms=bound(r, dt)[0], bound_by=bound(r, dt)[1],
-                 launches_if_weights_had_grad=r["launches_per_iter"])
+                 device_bound_share=bound(r, dt)[0] / r["device_ms"],
+                 launches_if_weights_had_grad=r["launches_per_iter"],
+                 bit_for_bit=all(v["bit_for_bit"] for (_, _, d), v in
+                                 wgrad.items() if d == dt))
         for dt in ("bfloat16", "float32")
         for r in per_iteration(wgrad, wcounts, dt).values()}}))
     log(json.dumps({"kernel_fp32": {

@@ -9,7 +9,7 @@
 //   dx[d]  = dz[d+1] W0^T + dz[d] W1^T + dz[d-1] W2^T
 //   dW_t   = sum_{b,d,n} x[d+t-1]^T dz[d]
 //   d inv  = sum dm * z,   d off = sum dm
-// The bf16 weight gradient takes all three from one product: with A_d =
+// The weight gradient takes all three from one product: with A_d =
 // [x[d-1] | x[d] | x[d+1]], G = sum_{b,d} A_d^T dm[d] is (3C x F), and
 //   dW_t = inv * G_t,  d inv = sum_{t,c} W_t * G_t,  d off = sum dm
 // (sum dm z = sum dm sum_t x W_t), so z is not recomputed and nothing is
@@ -23,7 +23,8 @@
 //   fp32 dx        dtc_f32_kernel<true, C>   <- `_bwd_kernel`'s dx
 //   bf16 dW, d inv, d off  dtc_wgrad_mma_kernel + dtc_wgrad_reduce_kernel
 //                                      <- `_bwd_kernel`'s rest
-//   fp32 dW, d inv, d off  dtc_wgrad_kernel    <- `_bwd_kernel`'s rest
+//   fp32 dW, d inv, d off  dtc_wgrad_f32_kernel + dtc_wgrad_reduce_kernel
+//                                      <- `_bwd_kernel`'s rest
 // Every kernel takes C, F in {8, 16, 32, 64} and every depth D >= 1.
 //
 // What bounds them. The work is 2 * 3 * C * F operations per pixel and
@@ -100,10 +101,15 @@
 // f32 and every thread stores its pixels' outputs as 16-byte runs. Each
 // output is summed in one fixed order (taps 0, 1, 2, channels in order)
 // and written by one thread, so the result does not depend on the split.
-// The fp32 wgrad kernel (only when the weights need a gradient) stages
-// rows with scalar loads (`stage_rows`), recomputes z from x as the TPU
-// kernel does (`tap_tile`), and adds each block's sums to the zeroed f32
-// outputs with atomics, so its sums vary in the last bits from run to run.
+// The fp32 weight gradient (only when the weights need a gradient) is
+// the bf16 one's split-K GEMM on CUDA cores, followed by the same ordered
+// reduction: dtc_wgrad_f32_kernel cuts the (b, pixel tile, plane) items
+// into slices by the launch shape alone and walks each slice's runs of
+// planes through a cp.async ring as dtc_f32_kernel does (F32Run), a
+// thread holding 4 channels x 8 outputs x 3 taps of G (96 accumulators)
+// for the whole slice, so that 20 shared floats feed 96 FMAs. Nothing is
+// added with atomics, and z is not recomputed: the sums are the same bits
+// on every run.
 #include "common.cuh"
 
 #include <type_traits>
@@ -671,11 +677,12 @@ dtc_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
 // (kWgParts contiguous runs of slices, each summed in slice order by its
 // own threads, then the runs in order), then dW = inv G, d off = G[3C],
 // d inv = sum_k W[k][f] G[k][f] as a fixed tree. Every output is written
-// once; the same inputs give the same bits on every run.
+// once; the same inputs give the same bits on every run. T is the
+// element type of w and inv (bf16 or f32); both weight gradients end here.
+template <typename T>
 __global__ void __launch_bounds__(kWgReduceThreads)
 dtc_wgrad_reduce_kernel(const float* __restrict__ ws,
-                        const __nv_bfloat16* __restrict__ w,
-                        const __nv_bfloat16* __restrict__ inv,
+                        const T* __restrict__ w, const T* __restrict__ inv,
                         float* __restrict__ dw, float* __restrict__ dco,
                         int C, int F, int slices) {
   constexpr int kOut = kWgReduceThreads / kWgParts;
@@ -1037,168 +1044,248 @@ dtc_f32_kernel(const float* __restrict__ a, const float* __restrict__ yv,
 
 // ------------------------------------ fp32 weight gradient: CUDA cores
 
-constexpr int NB = 32;            // pixels per tile
-constexpr int NBP = NB + 4;       // padded shared row (keeps float4 alignment)
-constexpr int DC = 8;             // planes per tile
-constexpr int PT = 4;             // pixels per thread
-constexpr int kThreads = 256;     // DC planes x (NB / PT) pixel groups x 4 feature groups
-constexpr int kMaxC = 64;         // widest channel count the tiles take
-constexpr int kMaxWOut = (3 * kMaxC * kMaxC + kThreads - 1) / kThreads;
+// The split-K GEMM of the bf16 weight gradient, G = sum_{b,d} A_d^T dm[d]
+// with A_d = [x[d-1] | x[d] | x[d+1]] and a ones row for d off, on
+// CUDA-core f32 FMAs (TF32's one pass does not hold fp32's tolerance).
+// The launch's items (b, pixel tile, plane d) are cut into `slices`
+// equal contiguous runs, one block each, by the launch shape alone; a
+// block walks its runs' x planes in order (F32Run: the one-plane halo at
+// each end of a run, clipped to [0, D)), each through a ring filled by
+// 16-byte cp.async, the next plane in flight while this one is computed.
+// dy (and y under ReLU) of the run's own planes come with their x plane;
+// the thread that copied a chunk forms dm = dy * 1[y > 0] in place (exact
+// in f32) and adds it to its running sum of dm (d off, for its chunk
+// column). Rows are padded by 4 floats so that the reads of a warp whose
+// lanes hold other pixel rows land in distinct banks.
+// A thread holds 4 channels x 8 outputs x 3 taps of G in registers (96
+// accumulators) for the whole slice: per pixel it reads its 4 channels of
+// x[d-1], x[d], x[d+1] (three float4) and 8 floats of dm[d], which the
+// lanes sharing its outputs read at one address, for 96 FMAs: 20 shared
+// floats per 96 FMAs, under the 0.25 a float per FMA an SM can feed.
+// L = (C / 4) (F / 8) threads cover G once; the block's P = 128 / L
+// groups of L threads split the tile's pixels (at C = F = 32 one warp
+// covers G and the 4 warps split the pixels; at 64 the warps split the
+// outputs). Input plane e completes output plane e - 1 (and e itself at
+// the volume's last plane); a tap outside [0, D) reads a zero plane.
+// At the end the groups' partials are added in group order, the dm sums
+// in row order, and the block writes its (F, 3C + 1) partial to ws[s];
+// dtc_wgrad_reduce_kernel then sums the slices in a fixed order. No
+// atomics: the same inputs give the same bits on every run and card.
+// The choices below are the fastest of cli/depthconv_split.py --wgrad
+// at the paper shapes on an H100 (PERF.md).
+constexpr int kWgF32Threads = 128;
+constexpr int kWgF32Look = 1;          // planes in flight past the current
+constexpr int kWgF32MinBlocks = 2;     // resident blocks an SM (registers)
+constexpr int kWgF32TileFloats = 4096; // bound on NB (C + F), NB a power of 2
+constexpr int kWgF32Items = 8;         // plane-tiles a slice, at least
+constexpr int kWgF32Wave = 132;        // slices a wave; at most two waves
+// ring slots: x planes e - 2 .. e and those in flight; dm planes e - 1, e
+// and those in flight; y planes copied but not yet masked
+constexpr int kWgXRing = kWgF32Look + 3;
+constexpr int kWgMRing = kWgF32Look + 2;
+constexpr int kWgYRing = kWgF32Look;
 
-// acc[i][j] += sum_t sum_k src[row pl + t][k][pg*PT + i] * w[t][k][fg*FT + j]
-// src: (DC + 2) rows of [cin][NBP] floats, row r = plane d0 - 1 + r.
-// w:   [3][cin][cout] floats with cout = 4 * FT.
-template <int FT>
-__device__ __forceinline__ void tap_tile(const float* src, const float* w,
-                                         int cin, int pl, int pg, int fg,
-                                         float (&acc)[PT][FT]) {
-  const int cout = 4 * FT;
+// acc[t] += x_t^T dm over this thread's `tmp` pixels of the tile: x_t
+// its 4 channels of tap t's staged x plane, dm its 8 outputs of the
+// staged dm plane; pixel rows xstep and mstep floats apart. Each
+// accumulator adds its pixels in order.
+__device__ __forceinline__ void wg_f32_taps(const float* __restrict__ x0,
+                                            const float* __restrict__ x1,
+                                            const float* __restrict__ x2,
+                                            const float* __restrict__ m,
+                                            int xstep, int mstep, int tmp,
+                                            float (&acc)[3][4][8]) {
+#pragma unroll 2
+  for (int i = 0; i < tmp; ++i) {
+    const float4 a[3] = {*reinterpret_cast<const float4*>(x0),
+                         *reinterpret_cast<const float4*>(x1),
+                         *reinterpret_cast<const float4*>(x2)};
+    const float4 m0 = *reinterpret_cast<const float4*>(m);
+    const float4 m1 = *reinterpret_cast<const float4*>(m + 4);
+    const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
 #pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    const float* s = src + (size_t)(pl + t) * cin * NBP + pg * PT;
-    const float* wt = w + (size_t)t * cin * cout + fg * FT;
-    for (int k = 0; k < cin; ++k) {
-      const float4 xv = *reinterpret_cast<const float4*>(s + k * NBP);
-      float wv[FT];
-      if constexpr (FT % 4 == 0) {
+    for (int t = 0; t < 3; ++t) {
+      const float xv[4] = {a[t].x, a[t].y, a[t].z, a[t].w};
 #pragma unroll
-        for (int j = 0; j < FT; j += 4) {
-          const float4 q = *reinterpret_cast<const float4*>(wt + k * cout + j);
-          wv[j] = q.x; wv[j + 1] = q.y; wv[j + 2] = q.z; wv[j + 3] = q.w;
-        }
-      } else {
+      for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int j = 0; j < FT; ++j) wv[j] = wt[k * cout + j];
-      }
-#pragma unroll
-      for (int j = 0; j < FT; ++j) {
-        acc[0][j] = fmaf(xv.x, wv[j], acc[0][j]);
-        acc[1][j] = fmaf(xv.y, wv[j], acc[1][j]);
-        acc[2][j] = fmaf(xv.z, wv[j], acc[2][j]);
-        acc[3][j] = fmaf(xv.w, wv[j], acc[3][j]);
-      }
+        for (int f = 0; f < 8; ++f)
+          acc[t][c][f] = fmaf(xv[c], mv[f], acc[t][c][f]);
     }
+    x0 += xstep;
+    x1 += xstep;
+    x2 += xstep;
+    m += mstep;
   }
 }
 
-// Stage rows [d_first, d_first + nrows) of the (B, D, N, ch) tile
-// [n0, n0 + NB) into dst[r][k][p] as f32; rows or pixels outside the
-// tensor are zero. With dy != nullptr the staged value is the masked
-// output gradient dy * 1[y > 0] (relu) or dy, times scale[k] if given.
-// ch divides kThreads, so each thread keeps one channel k and walks the
-// pixels p0, p0 + kThreads / ch, ...: consecutive threads read
-// consecutive elements.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           const float* dy, const float* scale,
-                                           int relu, int64_t b, int D, int N,
-                                           int ch, int d_first, int nrows,
-                                           int n0) {
-  const int k = threadIdx.x % ch, p0 = threadIdx.x / ch;
-  const int step = kThreads / ch;
-  const float sc = scale ? to_f(scale[k]) : 1.f;
-  for (int r = 0; r < nrows; ++r) {
-    const int d = d_first + r;
-    const bool in_d = d >= 0 && d < D;
-    const int64_t row = (b * D + d) * (int64_t)N;
-    float* out = dst + (r * ch + k) * NBP;
-    for (int p = p0; p < NB; p += step) {
-      const int n = n0 + p;
-      float v = 0.f;
-      if (in_d && n < N) {
-        const int64_t idx = (row + n) * ch + k;
-        if (dy) {
-          v = (!relu || to_f(src[idx]) > 0.f) ? to_f(dy[idx]) * sc : 0.f;
-        } else {
-          v = to_f(src[idx]);
-        }
-      }
-      out[p] = v;
+// Slice s of the fp32 weight gradient: its (F, 3C + 1) partial of G goes
+// to ws[s]. x (B, D, N, C); y, dy (B, D, N, F), all 16-byte aligned; C,
+// F in {8, 16, 32, 64}; nb the pixel tile (wgrad_f32_tile); `items` = B
+// * tiles * D.
+__global__ void __launch_bounds__(kWgF32Threads, kWgF32MinBlocks)
+dtc_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     const float* __restrict__ dy, float* __restrict__ ws,
+                     int D, int N, int C, int F, int nb, int relu,
+                     int64_t items, int slices) {
+  constexpr int T = kWgF32Threads;
+  extern __shared__ float4 smem_wg[];
+  const int rsx = C + 4, rsm = F + 4;             // padded pixel rows
+  const int xslot = nb * rsx, mslot = nb * rsm;
+  float* xring = reinterpret_cast<float*>(smem_wg);  // [kWgXRing][nb][rsx]
+  float* zero = xring + kWgXRing * xslot;            // [nb][rsx], all 0
+  float* mring = zero + xslot;                       // [kWgMRing][nb][rsm]
+  float* yring = mring + kWgMRing * mslot;           // [kWgYRing][nb][rsm]
+
+  const int tid = threadIdx.x;
+  // this thread's part of G: channel group cg (4 cg .. + 3), output
+  // group fg (8 fg .. + 7), pixel group pg (tile pixels pg + P i)
+  const int L = (C / 4) * (F / 8), P = T / L, tmp = nb / P;
+  const int pg = tid / L, cg = tid % L % (C / 4), fg = tid % L / (C / 4);
+  // its copies: x chunk column jx of rows rx0, rx0 + rxs, ...; dy (and
+  // y) chunk column jm of rows rm0, rm0 + rms, ...
+  const int jx = tid % (C / 4), rx0 = tid / (C / 4), rxs = T / (C / 4);
+  const int jm = tid % (F / 4), rm0 = tid / (F / 4), rms = T / (F / 4);
+
+  for (int i = tid; i < xslot / 4; i += T)
+    reinterpret_cast<float4*>(zero)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // copy x plane r.e of r's tile into slot s and, for a plane of the
+  // run, its dy (and y); rows past N are zero-filled
+  auto fetch = [&](const F32Run& r, int s) {
+    const int64_t px = (r.b * D + r.e) * (int64_t)N;
+    float* xd = xring + (s % kWgXRing) * xslot + rx0 * rsx + 4 * jx;
+    for (int row = rx0; row < nb; row += rxs, xd += rxs * rsx) {
+      const int n = r.n0 + row;
+      const bool ok = n < N;
+      cp_async16(xd, x + (ok ? (px + n) * C + 4 * jx : 0), ok ? 16 : 0);
     }
-  }
-}
+    if (r.e < r.d0 || r.e >= r.d1) return;
+    float* md = mring + (s % kWgMRing) * mslot + rm0 * rsm + 4 * jm;
+    float* yd = yring + (s % kWgYRing) * mslot + rm0 * rsm + 4 * jm;
+    for (int row = rm0; row < nb; row += rms, md += rms * rsm,
+             yd += rms * rsm) {
+      const int n = r.n0 + row;
+      const bool ok = n < N;
+      const int64_t g = ok ? (px + n) * F + 4 * jm : 0;
+      cp_async16(md, dy + g, ok ? 16 : 0);
+      if (relu) cp_async16(yd, y + g, ok ? 16 : 0);
+    }
+  };
+  // dm = dy * 1[y > 0] (or dy) in place, over the chunks this thread
+  // copied, added to its running sum of dm
+  float4 osum = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto mask = [&](int s) {
+    float* md = mring + (s % kWgMRing) * mslot + rm0 * rsm + 4 * jm;
+    const float* yd = yring + (s % kWgYRing) * mslot + rm0 * rsm + 4 * jm;
+    for (int row = rm0; row < nb; row += rms, md += rms * rsm,
+             yd += rms * rsm) {
+      float4 g = *reinterpret_cast<const float4*>(md);
+      if (relu) {
+        const float4 q = *reinterpret_cast<const float4*>(yd);
+        g.x = q.x > 0.f ? g.x : 0.f;
+        g.y = q.y > 0.f ? g.y : 0.f;
+        g.z = q.z > 0.f ? g.z : 0.f;
+        g.w = q.w > 0.f ? g.w : 0.f;
+        *reinterpret_cast<float4*>(md) = g;
+      }
+      osum.x += g.x;
+      osum.y += g.y;
+      osum.z += g.z;
+      osum.w += g.w;
+    }
+  };
 
-// fp32: dW (3, C, F) and dco (2, F) = (d inv, d off), added atomically.
-// One block per (pixel tile, batch) walks all planes in chunks of DC;
-// FT = F / 4 for the z recompute.
-template <int FT>
-__global__ void __launch_bounds__(kThreads)
-dtc_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 const float* __restrict__ dy, const float* __restrict__ w,
-                 const float* __restrict__ inv, float* __restrict__ dw,
-                 float* __restrict__ dco, int D, int N, int C, int relu) {
-  constexpr int F = 4 * FT;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // [3][C][F]
-  float* xs = ws + 3 * C * F;                    // [DC + 2][C][NBP]
-  float* ms = xs + (DC + 2) * C * NBP;           // [DC][F][NBP] = dm
-  float* red = ms + DC * F * NBP;                // [2][F]
-  const int64_t b = blockIdx.z;
-  const int n0 = blockIdx.x * NB;
-  const int nw = 3 * C * F;
-  for (int i = threadIdx.x; i < nw; i += kThreads) ws[i] = to_f(w[i]);
-  for (int i = threadIdx.x; i < 2 * F; i += kThreads) red[i] = 0.f;
-
-  const int fg = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 7,
-            pl = threadIdx.x >> 5;
-  float accw[kMaxWOut];
+  float acc[3][4][8];
 #pragma unroll
-  for (int j = 0; j < kMaxWOut; ++j) accw[j] = 0.f;
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int f = 0; f < 8; ++f) acc[t][c][f] = 0.f;
 
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    __syncthreads();                 // previous chunk's readers are done
-    stage_rows(xs, x, nullptr, nullptr, 0, b, D, N, C, d0 - 1, DC + 2, n0);
-    stage_rows(ms, y, dy, nullptr, relu, b, D, N, F, d0, DC, n0);
+  const int tiles = (N + nb - 1) / nb;
+  const int64_t i0 = (int64_t)blockIdx.x * items / slices;
+  const int64_t i1 = ((int64_t)blockIdx.x + 1) * items / slices;
+  F32Run fc, cc;
+  bool fv = f32_begin(fc, i0, i1, D, tiles, nb);
+  bool cv = fv;
+  cc = fc;
+  // prologue: the first kWgF32Look planes, one commit group each
+#pragma unroll
+  for (int k = 0; k < kWgF32Look; ++k) {
+    if (fv) {
+      fetch(fc, k);
+      fv = f32_next(fc, i1, D, tiles, nb);
+    }
+    cp_async_commit();
+  }
+  const int xo = pg * rsx + 4 * cg, mo = pg * rsm + 8 * fg;
+  const int xstep = P * rsx, mstep = P * rsm;
+  auto xs = [&](int s) { return xring + (s % kWgXRing) * xslot + xo; };
+  auto ms = [&](int s) { return mring + (s % kWgMRing) * mslot + mo; };
+  for (int s = 0; cv; ++s) {
+    cp_async_wait<kWgF32Look - 1>();    // plane s has landed
+    const int e = cc.e;
+    const bool own = e >= cc.d0 && e < cc.d1;
+    if (own) mask(s);
+    // every copy of plane s and its dm are visible, and every thread is
+    // done with step s - 1, whose slots the next copy may take (the first
+    // pass also publishes the zero plane)
     __syncthreads();
-
-    // d inv / d off: z of this thread's tile, reduced into `red`
-    float acc[PT][FT] = {};
-    tap_tile<FT>(xs, ws, C, pl, pg, fg, acc);
-#pragma unroll
-    for (int j = 0; j < FT; ++j) {
-      const int f = fg * FT + j;
-      const float* m = ms + (pl * F + f) * NBP + pg * PT;
-      float mz = 0.f, msum = 0.f;
-#pragma unroll
-      for (int i = 0; i < PT; ++i) {
-        mz = fmaf(m[i], acc[i][j], mz);
-        msum += m[i];
-      }
-      atomicAdd(red + f, mz);
-      atomicAdd(red + F + f, msum);
+    if (fv) {
+      fetch(fc, s + kWgF32Look);
+      fv = f32_next(fc, i1, D, tiles, nb);
     }
+    cp_async_commit();
 
-    // dW_t[c][f] / inv[f] += sum_{plane, pixel} x[d + t - 1][c] * dm[d][f]
+    // output e - 1: taps x[e - 2] (zero below the volume), x[e - 1], x[e]
+    if (e - 1 >= cc.d0 && e - 1 < cc.d1)
+      wg_f32_taps(e >= 2 ? xs(s - 2) : zero + xo, xs(s - 1), xs(s),
+                  ms(s - 1), xstep, mstep, tmp, acc);
+    // output e at the volume's last plane: x[e - 1], x[e], zero
+    if (own && e == D - 1)
+      wg_f32_taps(e >= 1 ? xs(s - 1) : zero + xo, xs(s), zero + xo, ms(s),
+                  xstep, mstep, tmp, acc);
+    cv = f32_next(cc, i1, D, tiles, nb);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // the ring is free
+
+  // the slice's partial: pixel groups added in group order into gs
+  // [3C][F], the dm sums of the copying threads in row order
+  float* gs = reinterpret_cast<float*>(smem_wg);
+  float* os = gs + 3 * C * F;            // [rms][F]
+  *reinterpret_cast<float4*>(os + rm0 * F + 4 * jm) = osum;
+  for (int q = 0; q < P; ++q) {
+    if (pg == q) {
 #pragma unroll
-    for (int j = 0; j < kMaxWOut; ++j) {
-      const int o = threadIdx.x + j * kThreads;
-      if (o < nw) {
-        const int t = o / (C * F), rem = o - t * C * F;
-        const int c = rem / F, f = rem - c * F;
-        float s = 0.f;
-        for (int q = 0; q < DC; ++q) {
-          const float* xr = xs + ((q + t) * C + c) * NBP;
-          const float* mr = ms + (q * F + f) * NBP;
+      for (int t = 0; t < 3; ++t)
 #pragma unroll
-          for (int p = 0; p < NB; p += 4) {
-            const float4 a = *reinterpret_cast<const float4*>(xr + p);
-            const float4 m = *reinterpret_cast<const float4*>(mr + p);
-            s = fmaf(a.x, m.x, s);
-            s = fmaf(a.y, m.y, s);
-            s = fmaf(a.z, m.z, s);
-            s = fmaf(a.w, m.w, s);
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float4* g = reinterpret_cast<float4*>(
+                gs + (t * C + 4 * cg + c) * F + 8 * fg + 4 * h);
+            const float* a = acc[t][c] + 4 * h;
+            float4 v = q == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *g;
+            v.x += a[0];
+            v.y += a[1];
+            v.z += a[2];
+            v.w += a[3];
+            *g = v;
           }
-        }
-        accw[j] += s;
-      }
     }
+    __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < kMaxWOut; ++j) {
-    const int o = threadIdx.x + j * kThreads;
-    if (o < nw) atomicAdd(dw + o, accw[j] * to_f(inv[o % F]));
+  const int K3 = 3 * C + 1;
+  float* out = ws + (int64_t)blockIdx.x * F * K3;
+  for (int i = tid; i < 3 * C * F; i += T) out[(i % F) * K3 + i / F] = gs[i];
+  for (int f = tid; f < F; f += T) {
+    float v = 0.f;
+    for (int r = 0; r < rms; ++r) v += os[r * F + f];
+    out[f * K3 + 3 * C] = v;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * F; i += kThreads) atomicAdd(dco + i, red[i]);
 }
 
 // ------------------------------------------------ launchers
@@ -1294,26 +1381,6 @@ int launch_mma(const void* a, const void* yv, const void* w, const void* inv,
                                   relu, s);
 }
 
-template <int FT>
-int launch_wgrad(const void* x, const void* y, const void* dy, const void* w,
-                 const void* inv, float* dw, float* dco, int B, int D, int N,
-                 int C, int relu, cudaStream_t s) {
-  const int F = 4 * FT;
-  if (int e = (int)cudaMemsetAsync(dw, 0, sizeof(float) * 3 * C * F, s)) return e;
-  if (int e = (int)cudaMemsetAsync(dco, 0, sizeof(float) * 2 * F, s)) return e;
-  if ((int64_t)B * N == 0) return 0;
-  const size_t smem = sizeof(float) *
-      (3 * C * F + (DC + 2) * C * NBP + DC * F * NBP + 2 * F);
-  auto kern = dtc_wgrad_kernel<FT>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((N + NB - 1) / NB, 1, B);
-  kern<<<grid, kThreads, smem, s>>>((const float*)x, (const float*)y,
-                                    (const float*)dy, (const float*)w,
-                                    (const float*)inv, dw, dco, D, N, C,
-                                    relu);
-  return (int)cudaGetLastError();
-}
-
 // the plane-tiles (b, 64-pixel tile, plane) of the bf16 weight gradient
 int64_t wgrad_items(int B, int D, int N) {
   return (int64_t)B * ((N + kMmaNB - 1) / kMmaNB) * D;
@@ -1356,8 +1423,77 @@ int launch_wgrad_mma(const void* x, const void* y, const void* dy,
                                            relu, items, slices);
     if (int e2 = (int)cudaGetLastError()) return e2;
   }
-  dtc_wgrad_reduce_kernel<<<F, kWgReduceThreads, 0, s>>>(
+  dtc_wgrad_reduce_kernel<bf16><<<F, kWgReduceThreads, 0, s>>>(
       ws, (const bf16*)w, (const bf16*)inv, dw, dco, C, F, slices);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 weight gradient's pixel tile at (C, F): the largest power of
+// 2 with NB (C + F) <= kWgF32TileFloats, and at least one pixel for each
+// pixel group of the block.
+int wgrad_f32_tile(int C, int F) {
+  const int groups = kWgF32Threads / ((C / 4) * (F / 8));
+  int nb = 1;
+  while (2 * nb * (C + F) <= kWgF32TileFloats) nb *= 2;
+  return nb > groups ? nb : groups;
+}
+
+// the plane-tiles (b, pixel tile, plane) of the fp32 weight gradient
+int64_t wgrad_f32_items(int B, int D, int N, int C, int F) {
+  const int nb = wgrad_f32_tile(C, F);
+  return (int64_t)B * ((N + nb - 1) / nb) * D;
+}
+
+// Slices of the fp32 weight gradient: one per kWgF32Items plane-tiles,
+// cut down to whole waves of kWgF32Wave blocks past one wave (one or two
+// blocks an SM of an H100: a part wave leaves SMs with two blocks behind
+// those with one; cli/depthconv_split.py --wgrad, PERF.md). A function of
+// the launch shape alone, never of the card: the sums are the same bits
+// on any card.
+int wgrad_f32_slices(int64_t items) {
+  const int64_t s = (items + kWgF32Items - 1) / kWgF32Items;
+  if (s <= kWgF32Wave) return (int)s;
+  return s < 2 * kWgF32Wave ? kWgF32Wave : 2 * kWgF32Wave;
+}
+
+// Dynamic shared memory of the fp32 weight gradient at (C, F, tile nb):
+// its rings and zero plane, or at the end the partial [3C][F] and the dm
+// sums [rows a copy step][F], whichever is larger.
+size_t wgrad_f32_smem(int C, int F, int nb) {
+  const size_t ring = (size_t)(kWgXRing + 1) * nb * (C + 4) +
+                      (size_t)(kWgMRing + kWgYRing) * nb * (F + 4);
+  const size_t end = (size_t)3 * C * F + (size_t)kWgF32Threads * 4;
+  return sizeof(float) * (ring > end ? ring : end);
+}
+
+// fp32: the split-K GEMM on CUDA cores into ws, then the ordered
+// reduction, which writes every output
+int launch_wgrad_f32(const void* x, const void* y, const void* dy,
+                     const void* w, const void* inv, float* dw, float* dco,
+                     float* ws, int B, int D, int N, int C, int F, int relu,
+                     cudaStream_t s) {
+  const int nb = wgrad_f32_tile(C, F);
+  const int64_t items = wgrad_f32_items(B, D, N, C, F);
+  const int slices = wgrad_f32_slices(items);
+  if (slices > 0) {
+    static const int e = [] {
+      size_t most = 0;
+      for (int c = 8; c <= 64; c *= 2)
+        for (int f = 8; f <= 64; f *= 2) {
+          const size_t b = wgrad_f32_smem(c, f, wgrad_f32_tile(c, f));
+          most = b > most ? b : most;
+        }
+      return set_smem(dtc_wgrad_f32_kernel, most);
+    }();
+    if (e) return e;
+    dtc_wgrad_f32_kernel<<<slices, kWgF32Threads,
+                           wgrad_f32_smem(C, F, nb), s>>>(
+        (const float*)x, (const float*)y, (const float*)dy, ws, D, N, C, F,
+        nb, relu, items, slices);
+    if (int e2 = (int)cudaGetLastError()) return e2;
+  }
+  dtc_wgrad_reduce_kernel<float><<<F, kWgReduceThreads, 0, s>>>(
+      ws, (const float*)w, (const float*)inv, dw, dco, C, F, slices);
   return (int)cudaGetLastError();
 }
 
@@ -1433,11 +1569,6 @@ int with_width(int ch, Fn&& fn) {
   return EDS_ERR_UNSUPPORTED;
 }
 
-// a channel count the fp32 staging takes: it divides kThreads, at most kMaxC
-bool channels_ok(int c) {
-  return c >= 1 && c <= kMaxC && kThreads % c == 0;
-}
-
 }  // namespace
 
 // x (B, D, N, C), w (3, C, F), inv/off (F,) -> y (B, D, N, F); all in the
@@ -1499,29 +1630,39 @@ extern "C" int dtc_f32_geometry(int what, int dx, int B, int D, int N, int C,
   });
 }
 
-// Bytes of the f32 workspace that dtc_backward_w takes in bf16 (the
+// Bytes of the f32 workspace that dtc_backward_w takes in `dtype` (the
 // slices' partials of G); -1 for widths the kernels do not take.
-extern "C" int dtc_wgrad_workspace_bytes(int B, int D, int N, int C, int F) {
+extern "C" int dtc_wgrad_workspace_bytes(int dtype, int B, int D, int N,
+                                         int C, int F) {
   if (!width_ok(C) || !width_ok(F)) return -1;
-  const int64_t items = wgrad_items(B, D, N);
-  return (int)(sizeof(float) * wgrad_slices(items, wgrad_class(C, F)) * F *
-               (3 * C + 1));
+  const int slices =
+      dtype == EDS_DTYPE_F32
+          ? wgrad_f32_slices(wgrad_f32_items(B, D, N, C, F))
+          : wgrad_slices(wgrad_items(B, D, N), wgrad_class(C, F));
+  return (int)(sizeof(float) * slices * F * (3 * C + 1));
+}
+
+// The pixel tile of the weight gradient's items (b, tile, plane) in
+// `dtype` at (C, F); -1 for widths the kernels do not take.
+extern "C" int dtc_wgrad_tile(int dtype, int C, int F) {
+  if (!width_ok(C) || !width_ok(F)) return -1;
+  return dtype == EDS_DTYPE_F32 ? wgrad_f32_tile(C, F) : kMmaNB;
 }
 
 // dw (3, C, F) and dco (2, F) = (d inv, d off) in f32, summed over the
-// whole (B, D, N) grid; every output is written. bf16: C, F in {8, 16,
-// 32, 64}, x, y, dy 16-byte aligned, ws of dtc_wgrad_workspace_bytes;
-// the sums are the same bits on every run. fp32 (ws unused): F in {8,
-// 16, 32, 64}, C <= 64, summed with atomics.
+// whole (B, D, N) grid; every output is written. C, F in {8, 16, 32,
+// 64}; x, y, dy 16-byte aligned; ws of dtc_wgrad_workspace_bytes in the
+// same dtype. bf16 on tensor cores, fp32 on CUDA cores, each a split-K
+// GEMM and an ordered reduction: the sums are the same bits on every run.
 extern "C" int dtc_backward_w(int dtype, const void* x, const void* y,
                               const void* dy, const void* w, const void* inv,
                               float* dw, float* dco, float* ws, int B, int D,
                               int N, int C, int F, int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!width_ok(C) || !width_ok(F)) return EDS_ERR_UNSUPPORTED;
+  if (!aligned16(x) || !aligned16(y) || !aligned16(dy))
+    return EDS_ERR_UNSUPPORTED;
   if (dtype == EDS_DTYPE_BF16) {
-    if (!width_ok(C) || !width_ok(F)) return EDS_ERR_UNSUPPORTED;
-    if (!aligned16(x) || !aligned16(y) || !aligned16(dy))
-      return EDS_ERR_UNSUPPORTED;
     switch (wgrad_class(C, F)) {
       case 16:
         return launch_wgrad_mma<16>(x, y, dy, w, inv, dw, dco, ws, B, D, N,
@@ -1534,9 +1675,7 @@ extern "C" int dtc_backward_w(int dtype, const void* x, const void* y,
                                     C, F, relu, s);
     }
   }
-  if (dtype != EDS_DTYPE_F32 || !channels_ok(C)) return EDS_ERR_UNSUPPORTED;
-  return with_width(F, [&](auto f) {
-    return launch_wgrad<decltype(f)::value / 4>(x, y, dy, w, inv, dw, dco, B,
-                                                D, N, C, relu, s);
-  });
+  if (dtype != EDS_DTYPE_F32) return EDS_ERR_UNSUPPORTED;
+  return launch_wgrad_f32(x, y, dy, w, inv, dw, dco, ws, B, D, N, C, F, relu,
+                          s);
 }

@@ -52,7 +52,8 @@ SIGNATURES = {
         "dtc_backward_w": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P),
         # size queries (no stream; they return the size, not a status)
-        "dtc_wgrad_workspace_bytes": (_I, _I, _I, _I, _I),
+        "dtc_wgrad_workspace_bytes": (_I, _I, _I, _I, _I, _I),
+        "dtc_wgrad_tile": (_I, _I, _I),
         "dtc_f32_geometry": (_I, _I, _I, _I, _I, _I, _I),
     },
 }

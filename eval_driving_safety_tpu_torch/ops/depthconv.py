@@ -29,14 +29,16 @@ in `_cuda.align_copies`; the model's inputs never need it).
 
 The backward always computes dx; dW and the coefficient gradients run
 only when autograd asks for them, which the attack never does and
-training always does. In bf16 they come from one split-K tensor-core
-GEMM, G = sum A_d^T dm[d] with A_d = [x[d-1] | x[d] | x[d+1]], whose
-slices' f32 partials (a workspace the wrapper allocates,
-`wgrad_workspace_bytes`) a second kernel sums in a fixed order: dW =
-inv G, d inv = sum W G, d off = sum dm, the same bits on every run
+training always does. They come from one split-K GEMM, G = sum A_d^T
+dm[d] with A_d = [x[d-1] | x[d] | x[d+1]], on tensor cores in bf16 and
+on CUDA-core f32 FMAs in fp32 (each thread holding 4 channels x 8
+outputs x 3 taps of G for its whole slice), whose slices' f32 partials
+(a workspace the wrapper allocates, `wgrad_workspace_bytes`) a second
+kernel sums in a fixed order: dW = inv G, d inv = sum W G, d off = sum
+dm. The slices are cut by the launch shape alone and nothing is added
+with atomics, so two calls give the same bits in either dtype
 (`reference_depth_tap_conv_wgrad` is its plain version, for the tests).
-In fp32 one CUDA-core kernel recomputes z and sums with f32 atomics. The
-dx kernel counts as a launch of `depth_tap_conv_bwd`, the weight
+The dx kernel counts as a launch of `depth_tap_conv_bwd`, the weight
 gradient as one of `depth_tap_conv_wgrad`.
 
 On the model axis (parallel/volume.py) a rank holds D_local planes of the
@@ -84,7 +86,7 @@ def reference_depth_tap_conv(x5, w, inv, off, relu: bool = True):
 
 
 def reference_depth_tap_conv_wgrad(x4, y, dy, w, inv, relu: bool = True):
-    """Plain version of the weight gradient, computed as the bf16 kernels
+    """Plain version of the weight gradient, computed as the kernels
     compute it: x4 (B, D, N, C), y and dy (B, D, N, F) -> dW (3, C, F),
     d inv (F,), d off (F,), all f32.
 
@@ -105,6 +107,11 @@ def reference_depth_tap_conv_wgrad(x4, y, dy, w, inv, relu: bool = True):
     return dw, dinv, dm.sum(dim=(0, 1, 2))
 
 
+def _widths_error(c, f):
+    return ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels take "
+                      f"channel counts in {CHANNELS}")
+
+
 def f32_geometry(b, d, n, c, f, dx=False):
     """(pixel tile, blocks) of the fp32 forward's (or dx's) launch at
     (B, D, N, C, F): the launch cuts B x tiles x D items into one equal
@@ -112,20 +119,30 @@ def f32_geometry(b, d, n, c, f, dx=False):
     tile, blocks = (_cuda.query("depth_tap_conv", "dtc_f32_geometry", what,
                                 int(dx), b, d, n, c, f) for what in (0, 1))
     if tile < 0 or blocks < 0:
-        raise ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels take "
-                         f"channel counts in {CHANNELS}")
+        raise _widths_error(c, f)
     return tile, blocks
 
 
-def wgrad_workspace_bytes(b, d, n, c, f) -> int:
-    """Bytes of f32 workspace the bf16 weight gradient takes at (B, D, N,
-    C, F): one (F, 3C + 1) partial per slice of its split-K GEMM."""
+def wgrad_workspace_bytes(b, d, n, c, f, dtype=torch.bfloat16) -> int:
+    """Bytes of f32 workspace the weight gradient in `dtype` takes at (B,
+    D, N, C, F): one (F, 3C + 1) partial per slice of its split-K GEMM."""
     nbytes = _cuda.query("depth_tap_conv", "dtc_wgrad_workspace_bytes",
-                         b, d, n, c, f)
+                         _cuda.DTYPE_CODES[dtype], b, d, n, c, f)
     if nbytes < 0:
-        raise ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels take "
-                         f"channel counts in {CHANNELS}")
+        raise _widths_error(c, f)
     return nbytes
+
+
+def wgrad_geometry(b, d, n, c, f, dtype=torch.bfloat16):
+    """(pixel tile, slices) of the weight gradient's launch in `dtype` at
+    (B, D, N, C, F): its B x tiles x D items are cut into that many equal
+    contiguous slices. For the checks at the kernels' edges."""
+    tile = _cuda.query("depth_tap_conv", "dtc_wgrad_tile",
+                       _cuda.DTYPE_CODES[dtype], c, f)
+    if tile < 0:
+        raise _widths_error(c, f)
+    return tile, wgrad_workspace_bytes(b, d, n, c, f, dtype) // (
+        4 * f * (3 * c + 1))
 
 
 class _DepthTapConv(torch.autograd.Function):
@@ -135,8 +152,7 @@ class _DepthTapConv(torch.autograd.Function):
         f = w.shape[-1]
         _cuda.check_tensors("depth_tap_conv", x4, w, inv, off)
         if c not in CHANNELS or f not in CHANNELS:
-            raise ValueError(f"depth_tap_conv: C={c}, F={f}; the kernels "
-                             f"take channel counts in {CHANNELS}")
+            raise _widths_error(c, f)
         if w.shape != (3, c, f) or inv.shape != (f,) or off.shape != (f,):
             raise ValueError("depth_tap_conv: w must be (3, C, F) and "
                              "inv/off (F,)")
@@ -171,15 +187,14 @@ class _DepthTapConv(torch.autograd.Function):
             dw32 = torch.empty((3, c, f), dtype=torch.float32,
                                device=x4.device)
             dco = torch.empty((2, f), dtype=torch.float32, device=x4.device)
-            ws = None
-            if x4.dtype == torch.bfloat16:
-                ws = torch.empty(wgrad_workspace_bytes(b, d, n, c, f) // 4,
-                                 dtype=torch.float32, device=x4.device)
+            ws = torch.empty(
+                wgrad_workspace_bytes(b, d, n, c, f, x4.dtype) // 4,
+                dtype=torch.float32, device=x4.device)
             _cuda.launch("depth_tap_conv", "dtc_backward_w", code,
                          x4.data_ptr(), y.data_ptr(), dy.data_ptr(),
                          w.data_ptr(), inv.data_ptr(), dw32.data_ptr(),
-                         dco.data_ptr(), None if ws is None else ws.data_ptr(),
-                         b, d, n, c, f, int(ctx.relu))
+                         dco.data_ptr(), ws.data_ptr(), b, d, n, c, f,
+                         int(ctx.relu))
             _cuda.count_launch("depth_tap_conv_wgrad", (b, d, n, c, f),
                                x4.dtype)
             dw = dw32.to(w.dtype)

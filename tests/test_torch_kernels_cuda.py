@@ -6,13 +6,14 @@ card. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Imports no JAX
 
 fp32 with TF32 off. Tolerances: forward atol 1e-5 (the same f32
 arithmetic, with FMA contraction), gradients atol 1e-4 (summed over the
-planes in another order, fp32 dW/d inv/d off over the whole grid with
-atomics); the fp32 depth-tap conv forward and dx at their tiles' edges
-within 1e-5 x the largest magnitude, bit for bit from call to call. The
-depth-tap conv and the PSV warp are also held in bf16, at
-2^-7 x the largest reference magnitude (one bf16 rounding step of either
-side); the bf16 weight gradient also against its plain G-form version
-and bit for bit from call to call.
+planes in another order, fp32 dW/d inv/d off over the whole grid); the
+fp32 depth-tap conv forward and dx at their tiles' edges within 1e-5 x
+the largest magnitude, bit for bit from call to call. The depth-tap
+conv and the PSV warp are also held in bf16, at 2^-7 x the largest
+reference magnitude (one bf16 rounding step of either side). The
+weight gradient is held in both dtypes against its plain G-form
+version (fp32 within 1e-4 x the largest magnitude: sums over the whole
+grid in another order) and bit for bit from call to call.
 """
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ import torch
 from eval_driving_safety_tpu_torch.ops import _cuda
 from eval_driving_safety_tpu_torch.ops.depthconv import (
     depth_tap_conv, reference_depth_tap_conv, reference_depth_tap_conv_wgrad,
-    wgrad_workspace_bytes)
+    wgrad_geometry, wgrad_workspace_bytes)
 from eval_driving_safety_tpu_torch.ops.cost_volume import shift_along_width
 from eval_driving_safety_tpu_torch.ops.psv_warp import (build_psv,
                                                         psv_from_disparities,
@@ -268,9 +269,11 @@ def test_depth_tap_backward_launches_what_autograd_asks_for(dev, needs):
 def test_tiny_training_step_matches_cpu(dev):
     # the tiny DSGN in fp32 (TF32 off): every parameter's gradient on the
     # card within 1e-3 x its largest magnitude of the CPU's (the same
-    # arithmetic summed in other orders through ~40 layers, dW over the
-    # grid with atomics); a Score3D bias, whose gradient is 0 up to
-    # rounding (the softmax over planes cancels it), against its weight's
+    # arithmetic summed in other orders through ~40 layers); a Score3D
+    # bias, whose gradient is 0 up to rounding (the softmax over planes
+    # cancels it), against its weight's. A second step on the card, with
+    # library kernels in deterministic mode as the training CLI runs,
+    # gives every gradient bit for bit
     import dataclasses
 
     from eval_driving_safety_tpu_torch.config import DSGNConfig
@@ -300,10 +303,19 @@ def test_tiny_training_step_matches_cpu(dev):
         loss.backward()
         return {k: p.grad.cpu() for k, p in model.named_parameters()}
 
-    _cuda.reset_launches()
-    gk = grads(card, dev)
-    assert _cuda.launches["depth_tap_conv_wgrad"] == 8
-    assert _cuda.launches["depth_tap_conv_bwd"] == 8
+    from eval_driving_safety_tpu_torch.cli.common import \
+        use_deterministic_kernels
+    use_deterministic_kernels(dev)
+    try:
+        _cuda.reset_launches()
+        gk = grads(card, dev)
+        assert _cuda.launches["depth_tap_conv_wgrad"] == 8
+        assert _cuda.launches["depth_tap_conv_bwd"] == 8
+        card.zero_grad(set_to_none=True)
+        again = grads(card, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(again[k], v) for k, v in gk.items())
     gc = grads(cpu, "cpu")
     for name, want in gc.items():
         ref = name.replace(".bias", ".weight") \
@@ -346,15 +358,15 @@ def test_depth_tap_conv_bf16_copies_misaligned_views(dev, relu):
     assert torch.equal(ym, ya) and torch.equal(dxm, dxa)
 
 
-def _wgrad_case(dev, shape, seed, relu=True):
-    """bf16 inputs at (B, D, N, C, F); the weight gradient through the
-    wrapper (x needs no gradient) and its plain version under the
+def _wgrad_case(dev, shape, seed, relu=True, dtype="bfloat16"):
+    """Inputs in `dtype` at (B, D, N, C, F); the weight gradient through
+    the wrapper (x needs no gradient) and its plain version under the
     kernel's own forward."""
     b, d, n, c, f = shape
     rng = np.random.RandomState(seed)
-    bf = torch.bfloat16
+    dt = getattr(torch, dtype)
     mk = lambda *s_, sc=1.0, sh=0.0: torch.from_numpy(
-        (rng.randn(*s_) * sc + sh).astype(np.float32)).to(dev, bf)
+        (rng.randn(*s_) * sc + sh).astype(np.float32)).to(dev, dt)
     x, dy = mk(b, d, n, 1, c, sc=0.5), mk(b, d, n, 1, f)
     w, inv, off = mk(3, c, f, sc=c ** -0.5), mk(f, sc=0.2, sh=1.0), \
         mk(f, sc=0.1)
@@ -370,71 +382,93 @@ def _wgrad_case(dev, shape, seed, relu=True):
     return got, want, grads
 
 
-def _assert_wgrad_close(got, want):
+# the weight gradient's tolerance: one bf16 rounding step; in fp32 sums
+# of ~1e5-3e6 f32 products over the whole grid in another order
+WGRAD_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+
+
+def _assert_wgrad_close(got, want, dtype="bfloat16"):
     for name, a, r in zip(("dW", "d inv", "d off"), got, want):
-        atol = 2.0 ** -7 * float(r.abs().max())
+        atol = WGRAD_RTOL[dtype] * float(r.abs().max())
         torch.testing.assert_close(a.float(), r, atol=atol, rtol=0,
                                    msg=name)
 
 
 # the training shapes (DSGNConfig()) with N cut to B * D * N ~ 1e5
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [
     (1, 64, 1563, 32, 32), (1, 32, 3125, 64, 64), (1, 16, 1872, 64, 64),
     (1, 144, 695, 32, 32)])
-def test_wgrad_bf16_at_training_shapes(dev, shape):
-    got, want, _ = _wgrad_case(dev, shape, seed=shape[1])
-    _assert_wgrad_close(got, want)
+def test_wgrad_at_training_shapes(dev, shape, dtype):
+    got, want, _ = _wgrad_case(dev, shape, seed=shape[1], dtype=dtype)
+    _assert_wgrad_close(got, want, dtype)
 
 
-def _slice_bounds(shape):
+def _slice_bounds(shape, dtype="bfloat16"):
     """The plane-tile index where each slice of the weight gradient
-    starts, from the kernel's own workspace size."""
+    starts, from the kernel's own pixel tile and workspace size."""
     b, d, n, c, f = shape
-    items = b * -(-n // 64) * d
-    slices = wgrad_workspace_bytes(*shape) // (4 * f * (3 * c + 1))
+    tile, slices = wgrad_geometry(*shape, getattr(torch, dtype))
+    items = b * -(-n // tile) * d
     return d, [s * items // slices for s in range(slices)]
 
 
-# N ragged against 64, D of 1, 2, 3, 13, C != F, widths of 8, and slices
-# that start or end inside a tile's run of planes
+# N ragged against the pixel tile (64 in bf16; 128, 32, 64 and 256 in
+# fp32 at these widths), D of 1, 2, 3, 13, C != F, widths of 8, and
+# slices that start or end inside a tile's run of planes
 WGRAD_EDGES = [(2, 1, 65, 8, 16), (2, 2, 35, 16, 8), (2, 3, 1000, 8, 16),
                (2, 13, 130, 16, 8), (2, 13, 97, 64, 32),
-               (2, 2, 2561, 32, 64)]
+               (2, 2, 2561, 32, 64), (2, 1, 129, 8, 16), (2, 2, 33, 64, 32),
+               (1, 13, 65, 32, 32), (1, 1, 257, 8, 8)]
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", WGRAD_EDGES)
-def test_wgrad_bf16_at_its_edges(dev, shape, relu):
-    got, want, _ = _wgrad_case(dev, shape, seed=shape[2], relu=relu)
-    _assert_wgrad_close(got, want)
+def test_wgrad_at_its_edges(dev, shape, relu, dtype):
+    got, want, _ = _wgrad_case(dev, shape, seed=shape[2], relu=relu,
+                               dtype=dtype)
+    _assert_wgrad_close(got, want, dtype)
 
 
-def test_wgrad_edges_include_slices_ending_mid_tile(dev):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wgrad_edges_include_slices_ending_mid_tile(dev, dtype):
     mid = [s for s in WGRAD_EDGES
-           if any(i % _slice_bounds(s)[0] for i in _slice_bounds(s)[1])]
+           if any(i % _slice_bounds(s, dtype)[0]
+                  for i in _slice_bounds(s, dtype)[1])]
     assert len(mid) >= 3, mid
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [(1, 64, 1563, 32, 32),
-                                   (2, 13, 97, 64, 32)])
-def test_wgrad_bf16_is_bit_for_bit_from_call_to_call(dev, shape):
-    got, _, grads = _wgrad_case(dev, shape, seed=7)
+                                   (2, 13, 97, 64, 32), (2, 1, 129, 8, 16)])
+def test_wgrad_is_bit_for_bit_from_call_to_call(dev, shape, dtype):
+    got, _, grads = _wgrad_case(dev, shape, seed=7, dtype=dtype)
     for _ in range(3):
         again = grads()[1]
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 29952, 32, 32),
-                                   (1, 16, 1872, 64, 64), (2, 13, 97, 8, 16),
+                                   (1, 16, 1872, 64, 64),
+                                   (1, 24, 1872, 64, 64), (2, 13, 97, 8, 16),
                                    (1, 1, 1, 64, 8), (1, 0, 5, 32, 32)])
 def test_wgrad_workspace_bytes(dev, shape):
-    # one (F, 3C + 1) f32 partial per slice; a slice per k plane-tiles (k
-    # = 8 at widths up to 32, 4 at 64), at most 396 and 264
+    # one (F, 3C + 1) f32 partial per slice. bf16: a slice per k
+    # plane-tiles of 64 pixels (k = 8 at widths up to 32, 4 at 64), at
+    # most 396 and 264; fp32: a slice per 8 plane-tiles of its own tile,
+    # cut to one or two whole waves of 132 past one
     b, d, n, c, f = shape
     items = b * -(-n // 64) * d
     k, most = (4, 264) if max(c, f) == 64 else (8, 396)
     slices = min(most, -(-items // k))
     assert wgrad_workspace_bytes(*shape) == 4 * slices * f * (3 * c + 1)
+    tile, slices32 = wgrad_geometry(*shape, torch.float32)
+    per_8 = -(-(b * -(-n // tile) * d) // 8)
+    assert slices32 == (per_8 if per_8 <= 132 else
+                        132 if per_8 < 264 else 264)
+    assert wgrad_workspace_bytes(*shape, torch.float32) == \
+        4 * slices32 * f * (3 * c + 1)
     with pytest.raises(ValueError):
         wgrad_workspace_bytes(1, 2, 3, 12, 8)
 

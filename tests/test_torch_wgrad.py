@@ -1,6 +1,7 @@
-"""The depth-tap conv's weight gradient as the port's bf16 kernels compute
-it (`reference_depth_tap_conv_wgrad`: one product G = sum A_d^T dm[d],
-then dW = inv * G, d inv = sum W * G, d off = sum dm) against the JAX
+"""The depth-tap conv's weight gradient as the port's kernels compute it
+in bf16 and fp32 (`reference_depth_tap_conv_wgrad`: one product G = sum
+A_d^T dm[d], then dW = inv * G, d inv = sum W * G, d off = sum dm) against
+the JAX
 package's Pallas backward (`_pallas_bwd`, in interpret mode, as
 tests/test_torch_ops.py runs it) and against autograd of the port's plain
 forward, on the CPU in fp32.
@@ -49,12 +50,10 @@ def _wgrad(x, y, dy, wk, inv, relu):
         T(dy).reshape(b, d, h * w, f), T(wk), T(inv), relu)]
 
 
-@pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("d", [1, 2, 6])
-@pytest.mark.parametrize("c,f", [(8, 16), (16, 8)])
-def test_wgrad_matches_pallas_backward(monkeypatch, d, c, f, relu):
+def _check_against_pallas(monkeypatch, d, c, f, relu, zero_inv=False):
     monkeypatch.setattr(jdtc, "_FORCE_INTERPRET", True)
-    x, wk, inv, off, y, dy = _inputs(d, c, f, seed=10 * d + c)
+    x, wk, inv, off, y, dy = _inputs(d, c, f, seed=10 * d + c,
+                                     zero_inv=zero_inv)
     b, _, h, w, _ = x.shape
     n = h * w
     dm = np.where(y > 0, dy, 0.0) if relu else dy
@@ -67,6 +66,23 @@ def test_wgrad_matches_pallas_backward(monkeypatch, d, c, f, relu):
     _close(dw, np.asarray(jdw), "dW")
     _close(dinv, jdco[0], "d inv")
     _close(doff, jdco[1], "d off")
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("d", [1, 2, 6])
+@pytest.mark.parametrize("c,f", [(8, 16), (16, 8)])
+def test_wgrad_matches_pallas_backward(monkeypatch, d, c, f, relu):
+    _check_against_pallas(monkeypatch, d, c, f, relu)
+
+
+# the paper's widths (the fp32 kernel's 32- and 64-wide lane tiles), at
+# small N; inv = 0 in some columns at width 64
+@pytest.mark.parametrize("c,f,relu,zero_inv", [
+    (32, 32, True, False), (64, 64, False, False), (32, 64, True, False),
+    (64, 32, False, False), (64, 64, True, True)])
+def test_wgrad_matches_pallas_backward_at_paper_widths(monkeypatch, c, f,
+                                                       relu, zero_inv):
+    _check_against_pallas(monkeypatch, 3, c, f, relu, zero_inv)
 
 
 @pytest.mark.parametrize("relu", [True, False])
