@@ -1,0 +1,7 @@
+"""Share of the traced window in which no operation ran on the card."""
+from portbench import readers
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "patch_steps_per_s"
+read = readers.device_idle_pct
